@@ -1,0 +1,76 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+CUDA kernels have no interpreter, so these tests need a CUDA device and
+skip without one; on a machine with a card run them with
+
+    python -m pytest tests/test_torch_kernels.py -q
+
+Tolerances: f32 1e-4 (sums in another order), bf16 2e-2 (p rounded to
+bf16 before the PV product, outputs rounded to bf16).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                               paged_decode_cuda,
+                                               paged_decode_kernel,
+                                               paged_decode_layer_args,
+                                               paged_decode_plain)
+
+requires_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
+                                   reason="needs a CUDA device")
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _inputs(g, d, page, ctx, dtype, stage_idx, seed=0):
+    rng = np.random.default_rng(seed)
+    n, kh, max_pages = len(ctx), 2, 8
+    pool = n + n * max_pages
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            "cuda", dtype)
+
+    kp, vp = randn(2, pool, kh, page, d), randn(2, pool, kh, page, d)
+    bt = torch.from_numpy(rng.permutation(np.arange(n, pool)).reshape(
+        n, max_pages).astype(np.int32)).cuda()
+    pos = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    ks, vs = randn(2, n, kh, 32, d), randn(2, n, kh, 32, d)
+    return paged_decode_layer_args(
+        randn(n, kh, g, d), kp, vp, bt, pos, page_size=page, layer=1,
+        k_stage=ks, v_stage=vs, stage_idx=stage_idx,
+        live_pages=max_pages)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d,page", [(1, 16, 8), (2, 32, 16), (4, 64, 64),
+                                      (8, 128, 32)])
+@pytest.mark.parametrize("stage_idx", [0, 31])
+def test_paged_decode_kernel_matches_plain(g, d, page, dtype, stage_idx):
+    ctx = [stage_idx, stage_idx + 1, 5 * page + 3 + stage_idx,
+           8 * page + stage_idx]
+    args = _inputs(g, d, page, ctx, dtype, stage_idx)
+    got = paged_decode_cuda(*args)
+    torch.cuda.synchronize()
+    want = paged_decode_plain(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@requires_cuda
+def test_paged_decode_wrapper_counts_and_raises():
+    args = _inputs(2, 32, 16, [3, 40], torch.float32, 0)
+    before = paged_decode_kernel.launches
+    q, kp, vp, bt, pos = args[0], args[1], args[2], args[3], args[4]
+    paged_decode_attention(q, kp, vp, bt, pos, page_size=16)
+    assert paged_decode_kernel.launches == before + 1
+    with pytest.raises(TypeError, match="int32"):
+        paged_decode_attention(q, kp, vp, bt.long(), pos, page_size=16)
+    with pytest.raises(TypeError):
+        paged_decode_attention(q.half(), kp.half(), vp.half(), bt, pos,
+                               page_size=16)
+    assert paged_decode_kernel.launches == before + 1
