@@ -2,26 +2,47 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
-  card     the card's name and power limit (nvidia-smi) and torch's name;
-  build    builds the CUDA kernel from ``ray_tpu_torch/csrc`` (nvcc);
-  kernel   the paged decode kernel against its plain PyTorch version on
-           the card, at llama3-1b shapes (uniform and skewed batches,
-           staging rows 0/5/31, both compat modes, pos 0) and at head_dim
-           128, 16 and 32 with pages of 64, 8 and 16, in bf16 and f32;
-  time     the kernel, its plain version and one PyTorch call computing
-           the same function (scaled_dot_product_attention over
-           pre-gathered K/V, a yardstick only) at the two llama3-1b
-           batches, beside the least time the card could take;
-  serve    the main path: a llama3-1b ``InferenceEngine`` with random
-           weights serves 8 greedy requests (chunked prefill, mixed
-           dispatch, a prefix hit), with the kernel's launch count read
-           around the run;
-  profile  one more decode dispatch on that engine under torch.profiler:
-           the card's idle share and kernels launched per step;
-  parity   f32 greedy tokens of the paged engine (the kernel) equal the
-           dense engine's at llama3-1b widths and 2 layers.
+  card          the card's name and power limit (nvidia-smi) and torch's name;
+  build         builds every CUDA source in ``ray_tpu_torch/csrc`` (one nvcc
+                per source, all started together): seconds, registers and
+                spills for each;
+  kernel        the paged decode kernel against its plain PyTorch version on
+                the card, at llama3-1b shapes (uniform and skewed batches,
+                staging rows 0/5/31, both compat modes, pos 0) and at
+                head_dim 128, 16 and 32 with pages of 64, 8 and 16, in bf16
+                and f32;
+  time          the paged kernel, its plain version and one PyTorch call
+                computing the same function (scaled_dot_product_attention
+                over pre-gathered K/V, a yardstick only) at the two llama3-1b
+                batches, beside the least time the card could take;
+  flash_kernel  the flash-attention forward, dQ and dK/dV kernels against
+                their plain versions: llama3-1b shapes (causal at bench.py's
+                8 x 2048, non-causal, f32), head_dim 16/32/128, an odd S,
+                GQA groups of 1 and 4, bf16 and f32;
+  flash_time    each flash kernel at [8, 32, 2048, 64] / [8, 8, 2048, 64]
+                bf16, causal, beside its plain version, its bound and SDPA
+                (forward, and its backward for dQ and dK/dV; a yardstick
+                only, over K/V repeated to the q heads beforehand);
+  train         the training main path: llama3-1b with random weights,
+                batch 8 x 2048, remat "attn", chunked loss, autograd and an
+                SGD update, 2 warm-up and 5 timed steps on one repeated
+                batch, with each flash kernel's launch count read around
+                the run (16 a step each);
+  train_profile one more step under torch.profiler: the card's idle share
+                and where its time goes;
+  train_parity  f32 loss and every gradient of the kernel path
+                (attn_impl="flash") equal the plain path's ("reference") at
+                llama3-1b widths and 2 layers;
+  serve         the serving main path: a llama3-1b ``InferenceEngine`` with
+                random weights serves 8 greedy requests (chunked prefill,
+                mixed dispatch, a prefix hit), with the paged kernel's launch
+                count read around the run;
+  profile       one more decode dispatch on that engine under torch.profiler:
+                the card's idle share and kernels launched per step;
+  parity        f32 greedy tokens of the paged engine (the kernel) equal the
+                dense engine's at llama3-1b widths and 2 layers.
 
 Then a JSON line of the kernels, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -33,15 +54,24 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from ray_tpu_torch.llm import InferenceEngine, Request
-from ray_tpu_torch.models.llama import PRESETS, init_params
+from ray_tpu_torch.llm import InferenceEngine, Request, resolve_device
+from ray_tpu_torch.models.llama import (PRESETS, init_params, loss_fn,
+                                        train_flops_per_token)
+from ray_tpu_torch.ops.attention import (flash_dkdv_cuda, flash_dkdv_kernel,
+                                         flash_dkdv_plain, flash_dq_cuda,
+                                         flash_dq_kernel, flash_dq_plain,
+                                         flash_forward_cuda,
+                                         flash_forward_plain,
+                                         flash_fwd_kernel)
 from ray_tpu_torch.ops.paged_attention import (paged_decode_cuda,
                                                paged_decode_kernel,
                                                paged_decode_layer_args,
@@ -165,7 +195,7 @@ def phase_kernel() -> float:
 def _time_ms(fn, iters: int = 30) -> float:
     """Median CUDA-event time of ``fn`` with the L2 cache flushed before
     each call (each decode layer reads a different layer's pages)."""
-    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=DEVICE)
     for _ in range(3):
         fn()
     times = []
@@ -236,6 +266,324 @@ def phase_time() -> dict:
                       "bound_by": bound_by, "library_ms": library_ms}
         emit("time", batch=batch, stage_idx=16, dtype="bfloat16", **out[batch])
     return out
+
+
+# ------------------------------------------------------------------- flash
+# llama3-1b's attention at bench.py's batch: q [8, 32, 2048, 64], k/v
+# [8, 8, 2048, 64].
+FLASH_MAIN = (8, 32, 8, 2048, 64)
+# dQ/dK/dV: relative to the largest magnitude of the plain version's result
+# (one bf16 rounding of dS or P that may fall the other way on either side,
+# then the output's rounding).
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_TOL = 1e-4
+FLASH_KERNELS = {"flash_attention_fwd": flash_fwd_kernel,
+                 "flash_attention_dq": flash_dq_kernel,
+                 "flash_attention_dkdv": flash_dkdv_kernel}
+
+
+def flash_inputs(b, hq, hkv, s, d, dtype, seed: int = 0) -> tuple:
+    """q, k, v and an output cotangent dO, random normal, on the card."""
+    g = torch.Generator(DEVICE).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+
+    return (randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d),
+            randn(b, hq, s, d))
+
+
+def flash_cases() -> list:
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        # name, (b, hq, hkv, s, d), causal, dtype
+        ("llama3-1b_causal", FLASH_MAIN, True, bf16),
+        ("llama3-1b_noncausal_b2", (2, 32, 8, 2048, 64), False, bf16),
+        ("llama3-1b_causal_b1_s1024", (1, 32, 8, 1024, 64), True, f32),
+        ("d16_rep1_odd_s257", (2, 4, 4, 257, 16), True, bf16),
+        ("d16_rep1_odd_s257", (2, 4, 4, 257, 16), True, f32),
+        ("d32_rep4_noncausal", (2, 8, 2, 512, 32), False, bf16),
+        ("d32_rep4_noncausal", (2, 8, 2, 512, 32), False, f32),
+        ("d128_rep4_s1000", (1, 32, 8, 1000, 128), True, bf16),
+        ("d128_rep4_s1000", (1, 32, 8, 1000, 128), True, f32),
+    ]
+
+
+def _errs(got, want) -> tuple[float, float]:
+    """(max abs error, max abs error over the reference's max magnitude)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def phase_flash_kernel() -> dict:
+    """Every case; returns the largest abs errors at the main case, per
+    kernel."""
+    main = {}
+    for name, shape, causal, dtype in flash_cases():
+        q, k, v, do = flash_inputs(*shape, dtype)
+        o, lse = flash_forward_cuda(q, k, v, causal)
+        torch.cuda.synchronize()
+        want_o, want_lse = flash_forward_plain(q, k, v, causal)
+        # the backward kernels take the plain forward's lse and δ, so each
+        # is held against its plain version on identical inputs
+        delta = (do.float() * want_o.float()).sum(-1)
+        args = (q, k, v, do, want_lse, delta, causal)
+        dq = flash_dq_cuda(*args)
+        dk, dv = flash_dkdv_cuda(*args)
+        torch.cuda.synchronize()
+        want_dq = flash_dq_plain(*args)
+        want_dk, want_dv = flash_dkdv_plain(*args)
+        errs = {"o": _errs(o, want_o), "lse": _errs(lse, want_lse),
+                "dq": _errs(dq, want_dq), "dk": _errs(dk, want_dk),
+                "dv": _errs(dv, want_dv)}
+        # the plain results' largest magnitudes: an error of 0 (the same
+        # sums in the same order) is not an all-zero result
+        ref_max = {g: t.float().abs().max().item() for g, t in
+                   (("dq", want_dq), ("dk", want_dk), ("dv", want_dv))}
+        del q, k, v, do, o, lse, want_o, want_lse, delta, args, dq, dk, dv
+        del want_dq, want_dk, want_dv
+        torch.cuda.empty_cache()
+        tol_o, tol_g = TOLERANCE[dtype], FLASH_GRAD_TOL[dtype]
+        emit("flash_kernel", case=name, shape=list(shape), causal=causal,
+             dtype=str(dtype).split(".")[-1],
+             o_max_abs_err=errs["o"][0], lse_max_abs_err=errs["lse"][0],
+             **{f"{g}_max_abs_err": errs[g][0] for g in ("dq", "dk", "dv")},
+             **{f"{g}_rel_err": errs[g][1] for g in ("dq", "dk", "dv")},
+             **{f"{g}_plain_max_abs": m for g, m in ref_max.items()},
+             o_tolerance=tol_o, lse_tolerance=LSE_TOL, grad_rel_tolerance=tol_g)
+        bad = [g for g in ("dq", "dk", "dv") if not errs[g][1] <= tol_g]
+        if not errs["o"][0] <= tol_o:
+            bad.append("o")
+        if not errs["lse"][0] <= LSE_TOL:
+            bad.append("lse")
+        if bad:
+            raise AssertionError(f"flash case {name} {dtype}: {bad} out of "
+                                 f"tolerance: {errs}")
+        if shape == FLASH_MAIN:
+            main = {"flash_attention_fwd": errs["o"][0],
+                    "flash_attention_dq": errs["dq"][0],
+                    "flash_attention_dkdv": max(errs["dk"][0], errs["dv"][0])}
+    return main
+
+
+def _flash_bound(kind: str, b, hq, hkv, s, d, el: int) -> tuple[float, str]:
+    """Least time on the card: causal flops (half of each S x S product)
+    over the bf16 peak, or each input read once and each output written
+    once over HBM bandwidth, whichever is larger."""
+    products = {"fwd": 2, "dq": 3, "dkdv": 4}[kind]
+    flops = products * 2 * b * hq * s * s * d / 2
+    q_bytes, kv_bytes, stat_bytes = b * hq * s * d * el, b * hkv * s * d * el, \
+        b * hq * s * 4
+    nbytes = {"fwd": 2 * q_bytes + 2 * kv_bytes + stat_bytes,
+              "dq": 3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes,
+              "dkdv": 2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes}[kind]
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_flash_time() -> dict:
+    b, hq, hkv, s, d = FLASH_MAIN
+    q, k, v, do = flash_inputs(*FLASH_MAIN, torch.bfloat16, seed=1)
+    o, lse = flash_forward_cuda(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True)
+    # the yardstick: SDPA over K/V repeated to the q heads beforehand
+    kr = k.repeat_interleave(hq // hkv, dim=1)
+    vr = v.repeat_interleave(hq // hkv, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, kr, vr))
+    out = sdpa(qg, kg, vg, is_causal=True)
+    library_fwd = _time_ms(lambda: sdpa(q, kr, vr, is_causal=True))
+    library_bwd = _time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    calls = {
+        "flash_attention_fwd": ("fwd", lambda: flash_forward_cuda(q, k, v, True),
+                                lambda: flash_forward_plain(q, k, v, True),
+                                library_fwd),
+        "flash_attention_dq": ("dq", lambda: flash_dq_cuda(*args),
+                               lambda: flash_dq_plain(*args), library_bwd),
+        "flash_attention_dkdv": ("dkdv", lambda: flash_dkdv_cuda(*args),
+                                 lambda: flash_dkdv_plain(*args), library_bwd),
+    }
+    out_times = {}
+    for name, (kind, kernel, plain, library_ms) in calls.items():
+        ms = _time_ms(kernel)
+        plain_ms = _time_ms(plain, iters=5)
+        bound_ms, bound_by = _flash_bound(kind, b, hq, hkv, s, d, 2)
+        out_times[name] = {"ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "library_ms": library_ms}
+        emit("flash_time", kernel=name, shape=[b, hq, hkv, s, d],
+             causal=True, dtype="bfloat16",
+             library_call="scaled_dot_product_attention"
+             + (" forward" if kind == "fwd" else
+                " backward (dQ, dK and dV together)"),
+             **out_times[name])
+    del q, k, v, do, o, lse, delta, args, kr, vr, qg, kg, vg, out
+    torch.cuda.empty_cache()
+    return out_times
+
+
+# ------------------------------------------------------------------- train
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 8, 2048, 2, 5
+# Large enough that p - lr * g still moves bf16 weights (the lm_head and
+# embedding gradients are ~1/(8 * 2048) per token) on the repeated batch.
+TRAIN_LR = 2.0
+TRAIN_CHUNK = 2048  # bench.py's chunk_tokens
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _sgd_step(params: dict, batch: dict, cfg, lr: float) -> torch.Tensor:
+    """bench.py's step with SGD for Adafactor: loss, autograd over the
+    param tree, p - lr * g."""
+    loss = loss_fn(params, batch, cfg, chunk_tokens=TRAIN_CHUNK)
+    loss.backward()
+    with torch.no_grad():
+        for p in _leaves(params):
+            p.sub_(lr * p.grad)
+            p.grad = None
+    return loss.detach()
+
+
+def phase_train(seed: int = 0) -> dict:
+    """Returns each flash kernel's launch count over the trained steps."""
+    device = resolve_device(None)
+    cfg = dataclasses.replace(PRESETS["llama3-1b"], remat_policy="attn")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device).manual_seed(seed))
+    for p in _leaves(params):
+        p.requires_grad_()
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to(device)
+    batch = {"tokens": tokens}
+    n_params = sum(p.numel() for p in _leaves(params))
+
+    for kern in FLASH_KERNELS.values():
+        kern.launches = 0
+    losses, step_s = [], []
+    for _ in range(TRAIN_WARMUP):
+        losses.append(_sgd_step(params, batch, cfg, TRAIN_LR).item())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        t_step = time.perf_counter()
+        losses.append(_sgd_step(params, batch, cfg, TRAIN_LR).item())
+        step_s.append(time.perf_counter() - t_step)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in FLASH_KERNELS.items()}
+
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    tokens_per_sec = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt
+    flops_per_token = train_flops_per_token(cfg, TRAIN_SEQ)
+    emit("train", preset="llama3-1b", optimizer="sgd", lr=TRAIN_LR,
+         remat_policy=cfg.remat_policy, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         chunk_tokens=TRAIN_CHUNK, params=n_params, warmup_steps=TRAIN_WARMUP,
+         timed_steps=TRAIN_STEPS, losses=losses, step_s=step_s,
+         tokens_per_sec=tokens_per_sec, train_flops_per_token=flops_per_token,
+         mfu=tokens_per_sec * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         kernel_launches=launches)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on a repeated batch: {losses}")
+    for name, n in launches.items():
+        if n != cfg.n_layers * steps:
+            raise AssertionError(f"{name}: {n} launches != {cfg.n_layers} "
+                                 f"layers x {steps} steps")
+    profile_train_step(params, batch, cfg)
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+# cuBLAS's matrix-product kernels, by name (the projections, MLP, lm_head)
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma")
+
+
+def profile_train_step(params: dict, batch: dict, cfg) -> None:
+    """One more train step under torch.profiler, after the launch counts
+    were read: wall time against the summed device time of its kernels
+    gives the card's idle share; device time split into the flash
+    kernels, matrix products and the rest, and the top kernels, show where
+    the step goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _sgd_step(params, batch, cfg, TRAIN_LR).item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+            n_kernels += 1
+    busy_ms = sum(by_name.values()) / 1e3
+    flash_ms = {name: sum(t for n, t in by_name.items()
+                          if kern.function.replace("_launch", "_kernel") in n)
+                / 1e3 for name, kern in FLASH_KERNELS.items()}
+    gemm_ms = sum(t for n, t in by_name.items()
+                  if any(w in n for w in GEMM_NAMES)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit("train_profile", what="one llama3-1b train step, 8 x 2048, "
+         "remat attn, sgd", wall_ms=wall_ms,
+         device_busy_ms=busy_ms if by_name else "not measured",
+         device_idle_frac=1 - busy_ms / wall_ms if by_name else "not measured",
+         kernels_launched=n_kernels, flash_kernel_ms=flash_ms,
+         gemm_ms=gemm_ms,
+         other_ms=busy_ms - gemm_ms - sum(flash_ms.values()),
+         top_kernels_ms=[[n[:80], t / 1e3] for n, t in top])
+
+
+def phase_train_parity(seed: int = 1) -> None:
+    """f32 loss and gradients, kernel path against the plain path, at
+    llama3-1b widths, 2 layers, batch 2 x 256."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(PRESETS["llama3-1b"], n_layers=2,
+                              dtype=torch.float32, remat_policy="attn")
+    base = init_params(cfg, torch.Generator(DEVICE).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256))).to(
+        DEVICE)
+    out = {}
+    for impl in ("flash", "reference"):
+        params = {k: ({n: w.clone().requires_grad_() for n, w in v.items()}
+                      if isinstance(v, dict) else v.clone().requires_grad_())
+                  for k, v in base.items()}
+        loss = loss_fn(params, {"tokens": tokens},
+                       dataclasses.replace(cfg, attn_impl=impl),
+                       chunk_tokens=TRAIN_CHUNK)
+        loss.backward()
+        grads = {k: v.grad for k, v in params.items() if k != "layers"}
+        grads.update({f"layers/{n}": w.grad
+                      for n, w in params["layers"].items()})
+        out[impl] = (loss.item(), grads)
+    (loss_k, g_k), (loss_r, g_r) = out["flash"], out["reference"]
+    loss_err = abs(loss_k - loss_r) / abs(loss_r)
+    grad_errs = {n: _errs(g_k[n], g_r[n])[1] for n in g_r}
+    emit("train_parity", dtype="float32", layers=2, batch=[2, 256],
+         loss_flash=loss_k, loss_reference=loss_r, loss_rel_err=loss_err,
+         loss_tolerance=1e-5, grad_rel_err=grad_errs, grad_tolerance=1e-4)
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"train parity: loss {loss_k} vs {loss_r}")
+    bad = {n: e for n, e in grad_errs.items() if not e <= 1e-4}
+    if bad:
+        raise AssertionError(f"train parity: gradients out of tolerance {bad}")
+    del base, out
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------- serve
@@ -389,6 +737,26 @@ def phase_parity(seed: int = 1) -> None:
         raise AssertionError(f"paged {out['paged']} != dense {out['dense']}")
 
 
+def _build_all() -> None:
+    """One nvcc per CUDA source, all started together."""
+    kernels = [paged_decode_kernel, flash_fwd_kernel, flash_dq_kernel]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda kern: kern.build(), kernels))
+    wall = time.perf_counter() - t0
+    for kern in kernels:
+        log = kern.build_log
+        regs = [int(w) for line in log.splitlines() if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt.startswith("registers")]
+        spills = sum(int(w) for line in log.splitlines()
+                     for w, nxt in zip(line.split(), line.split()[1:])
+                     if nxt == "bytes" and "spill" in line and w.isdigit())
+        emit("build", source=f"ray_tpu_torch/csrc/{kern.source.name}",
+             seconds=kern.build_seconds, max_registers=max(regs, default=None),
+             spill_bytes=spills, all_sources_wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -397,30 +765,33 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     emit("card", nvidia_smi=card, torch_name=kind,
          torch=torch.__version__, cuda=torch.version.cuda)
-
-    paged_decode_kernel.build()
-    log = paged_decode_kernel.build_log
-    regs = [int(w) for line in log.splitlines() if "registers" in line
-            for w, nxt in zip(line.split(), line.split()[1:])
-            if nxt.startswith("registers")]
-    spills = sum(int(w) for line in log.splitlines()
-                 for w, nxt in zip(line.split(), line.split()[1:])
-                 if nxt == "bytes" and "spill" in line and w.isdigit())
-    emit("build", seconds=paged_decode_kernel.build_seconds,
-         max_registers=max(regs, default=None), spill_bytes=spills)
+    _build_all()
 
     max_err = phase_kernel()
     times = phase_time()
+    flash_err = phase_flash_kernel()
+    flash_times = phase_flash_time()
+    flash_launches = phase_train()
+    phase_train_parity()
     launches = phase_serve()
     phase_parity()
     t = times["uniform"]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "ray_tpu_torch/csrc/paged_decode.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:103",
-        "launches": launches, "max_abs_err": max_err, "ms": t["ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}]}))
+        "launches": launches, "max_abs_err": max_err, **t}]
+    replaces = {"flash_attention_fwd": ("flash_fwd.cu", 48),
+                "flash_attention_dq": ("flash_bwd.cu", 184),
+                "flash_attention_dkdv": ("flash_bwd.cu", 226)}
+    for name, (source, line) in replaces.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ray_tpu_torch/csrc/{source}",
+            "replaces": f"ray_tpu/ops/attention.py:{line}",
+            "launches": flash_launches[name], "max_abs_err": flash_err[name],
+            **flash_times[name]})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

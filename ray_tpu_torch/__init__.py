@@ -1,12 +1,17 @@
-"""ray_tpu_torch: the serving path of ray_tpu on PyTorch and CUDA (Hopper).
+"""ray_tpu_torch: the serving and training paths of ray_tpu on PyTorch and
+CUDA (Hopper).
 
 A second package beside ``ray_tpu``. It keeps the JAX package's module
 layout, names, parameter tree and page-pool layouts, and replaces its
-Pallas TPU kernel on this path with a CUDA kernel written for sm_90a
-(``csrc/``). It imports neither JAX nor ``ray_tpu``.
+Pallas TPU kernels on these paths with CUDA kernels written for sm_90a
+(``csrc/``): the paged decode kernel (serving) and the flash-attention
+forward, dQ and dK/dV kernels (training). It imports neither JAX nor
+``ray_tpu``.
 
-Entry point: ``ray_tpu_torch.llm.InferenceEngine``, on the CUDA card by
-default (``device="cpu"`` for the CPU).
+Entry points: ``ray_tpu_torch.llm.InferenceEngine``, on the CUDA card by
+default (``device="cpu"`` for the CPU); ``ray_tpu_torch.models.loss_fn``
+over ``init_params`` (or params carried from numpy), differentiated with
+``torch.autograd``, on whatever device the params lie.
 """
 
 from . import llm, models, ops

@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel source under ``csrc/`` exposes a plain C entry point. It is
+Each kernel source under ``csrc/`` exposes plain C entry points. It is
 compiled on first use by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/`` (listed in ``.gitignore``), keyed on a hash of
-the source and flags so an unchanged source is never rebuilt, and loaded
-with ``ctypes``. Nothing here runs at import time: the CPU-only test
+the source, the shared headers and the flags so an unchanged source is
+never rebuilt, and loaded with ``ctypes``. Several ``CudaKernel``s may
+name one source (one library, one entry point and one launch count
+each). Nothing here runs at import time: the CPU-only test
 environment has no ``nvcc`` and imports every module.
 """
 
@@ -64,6 +66,9 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes())
+        # Shared headers (csrc/*.cuh) are part of every source's build.
+        for header in sorted(SRC_DIR.glob("*.cuh")):
+            digest.update(header.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:16]}.so"
 

@@ -32,9 +32,8 @@ the dispatch boundary.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from ..models.llama import LlamaConfig
+from ..models.llama import LlamaConfig, _layer, _mlp, _project_qkv
 from ..ops import apply_rope, paged_decode_attention, rms_norm, stage_rows
 
 
@@ -44,27 +43,6 @@ def init_pages(config: LlamaConfig, num_pages: int, page_size: int,
     shape = (c.n_layers, num_pages, c.n_kv_heads, page_size, c.head_dim)
     return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
             "v": torch.zeros(shape, dtype=c.dtype, device=device)}
-
-
-def _layer(params: dict, l: int) -> dict:
-    """Layer ``l``'s weights: views into the stacked [L, ...] tensors."""
-    return {name: w[l] for name, w in params["layers"].items()}
-
-
-def _project_qkv(h, layer):
-    q = torch.einsum("bse,ehd->bhsd", h, layer["wq"])
-    k = torch.einsum("bse,ehd->bhsd", h, layer["wk"])
-    v = torch.einsum("bse,ehd->bhsd", h, layer["wv"])
-    return q, k, v
-
-
-def _mlp(x, layer, c: LlamaConfig):
-    """SwiGLU MLP with the silu in f32."""
-    h = rms_norm(x, layer["mlp_norm"], eps=c.norm_eps)
-    gate = torch.einsum("bse,em->bsm", h, layer["w_gate"])
-    up = torch.einsum("bse,em->bsm", h, layer["w_up"])
-    ff = F.silu(gate.float()).to(c.dtype) * up
-    return x + torch.einsum("bsm,me->bse", ff, layer["w_down"])
 
 
 def _gather_ctx(pool, l: int, tables):

@@ -1,5 +1,7 @@
 """Model definitions."""
 
-from .llama import PRESETS, LlamaConfig, init_params
+from .llama import (PRESETS, LlamaConfig, forward, forward_hidden,
+                    init_params, loss_fn, train_flops_per_token)
 
-__all__ = ["LlamaConfig", "PRESETS", "init_params"]
+__all__ = ["LlamaConfig", "PRESETS", "forward", "forward_hidden",
+           "init_params", "loss_fn", "train_flops_per_token"]

@@ -1,9 +1,18 @@
-"""Llama-3-family decoder configuration and parameters.
+"""Llama-3-family decoder: configuration, parameters, training forward
+and loss.
 
 Keeps the JAX package's preset names and its stacked parameter layout
 (``wq`` [L, E, H, D], ``wo`` [L, H, D, E], MLP weights [L, E, M] /
 [L, M, E]), so params carried across with ``llm.weights.params_from_numpy``
-drop in unchanged. The training forward and loss are not ported yet.
+drop in unchanged. ``forward_hidden``, ``forward`` and ``loss_fn`` are the
+training path; attention there is ``ops.flash_attention`` (the CUDA
+kernels on a CUDA tensor) or ``ops.mha_reference``. bf16 params and
+activations, f32 norm and softmax statistics and loss. Layers run in a
+Python loop over the stacked weights (the JAX package scans them).
+
+Not ported yet: MoE presets (raise), meshes and pipeline stages (a
+``mesh`` raises), ring and Ulysses attention, the ``"dots"`` remat policy
+(raises).
 """
 
 from __future__ import annotations
@@ -11,6 +20,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..ops import apply_rope, flash_attention, mha_reference, rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +38,13 @@ class LlamaConfig:
     rope_theta: float = 500_000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # attention implementation of the training path: "flash" | "reference"
+    attn_impl: str = "flash"
+    remat: bool = True
+    # "full": recompute the whole block in backward; "attn": keep q, k, v
+    # and the attention output, recompute the rest (the attention forward
+    # never runs twice); "dots" is not ported yet.
+    remat_policy: str = "full"
     # MoE: n_experts > 0 selects a routed expert MLP (not ported yet).
     moe_experts: int = 0
 
@@ -88,3 +108,209 @@ def init_params(config: LlamaConfig, generator: torch.Generator) -> dict:
         "final_norm": ones(E),
         "lm_head": lm_head,
     }
+
+
+def _layer(params: dict, l: int) -> dict:
+    """Layer ``l``'s weights: views into the stacked [L, ...] tensors."""
+    return {name: w[l] for name, w in params["layers"].items()}
+
+
+def _project_qkv(h, layer):
+    q = torch.einsum("bse,ehd->bhsd", h, layer["wq"])
+    k = torch.einsum("bse,ehd->bhsd", h, layer["wk"])
+    v = torch.einsum("bse,ehd->bhsd", h, layer["wv"])
+    return q, k, v
+
+
+def _mlp(x, layer, c: LlamaConfig):
+    """Residual SwiGLU MLP with the silu in f32."""
+    h = rms_norm(x, layer["mlp_norm"], eps=c.norm_eps)
+    gate = torch.einsum("bse,em->bsm", h, layer["w_gate"])
+    up = torch.einsum("bse,em->bsm", h, layer["w_up"])
+    ff = F.silu(gate.float()).to(c.dtype) * up
+    return x + torch.einsum("bsm,me->bse", ff, layer["w_down"])
+
+
+def _check_supported(c: LlamaConfig, mesh) -> None:
+    if c.moe_experts > 0:
+        raise NotImplementedError("MoE presets are not ported yet")
+    if mesh is not None:
+        raise NotImplementedError(
+            "meshes (dp/tp/sp/pp sharding) are not ported yet; pass "
+            "mesh=None")
+
+
+def _attention(q, k, v, config: LlamaConfig, mesh=None):
+    _check_supported(config, mesh)
+    if config.attn_impl == "flash":
+        return flash_attention(q, k, v, causal=True)
+    if config.attn_impl == "reference":
+        return mha_reference(q, k, v, causal=True)
+    if config.attn_impl in ("ring", "ulysses", "none"):
+        raise NotImplementedError(
+            f"attn_impl {config.attn_impl!r} is not ported yet")
+    raise ValueError(f"unknown attn_impl {config.attn_impl!r}")
+
+
+def _attn_inputs(x, layer, positions, c: LlamaConfig):
+    """x -> RMSNorm -> q/k/v projections -> RoPE on q and k."""
+    h = rms_norm(x, layer["attn_norm"], eps=c.norm_eps)
+    q, k, v = _project_qkv(h, layer)
+    q = apply_rope(q, positions, theta=c.rope_theta)
+    k = apply_rope(k, positions, theta=c.rope_theta)
+    return q, k, v
+
+
+def _attn_out_and_mlp(x, attn, layer, c: LlamaConfig):
+    """Output projection and residual, then the residual MLP."""
+    x = x + torch.einsum("bhsd,hde->bse", attn, layer["wo"])
+    return _mlp(x, layer, c)
+
+
+def _block(x, layer, positions, config: LlamaConfig, mesh=None):
+    """One decoder block. x: [B, S, E] in config.dtype -> the same. (The
+    JAX block also returns the MoE aux loss; dense blocks have none.)"""
+    q, k, v = _attn_inputs(x, layer, positions, config)
+    attn = _attention(q, k, v, config, mesh)
+    return _attn_out_and_mlp(x, attn, layer, config)
+
+
+def _apply_remat(config: LlamaConfig, positions, mesh=None):
+    """The decoder block ``(x, layer) -> x`` under the configured
+    rematerialisation policy (``torch.utils.checkpoint``).
+
+    ``"attn"`` keeps what the JAX policy ``save_only_these_names("q", "k",
+    "v", "attn_out")`` keeps. Selective checkpointing cannot see into the
+    kernels' autograd function, so the policy is built from the block's
+    structure: one checkpoint over x -> q/k/v (its recompute runs the norm,
+    projections and RoPE again), the attention outside any checkpoint (it
+    saves q, k, v, its output and lse, and its forward runs once per
+    step), and one checkpoint over (x, attn) -> the block output."""
+    c = config
+    if not c.remat:
+        return lambda x, layer: _block(x, layer, positions, c, mesh)
+    if c.remat_policy == "full":
+        return lambda x, layer: checkpoint(
+            _block, x, layer, positions, c, mesh, use_reentrant=False)
+    if c.remat_policy == "attn":
+        def block(x, layer):
+            q, k, v = checkpoint(_attn_inputs, x, layer, positions, c,
+                                 use_reentrant=False)
+            attn = _attention(q, k, v, c, mesh)
+            return checkpoint(_attn_out_and_mlp, x, attn, layer, c,
+                              use_reentrant=False)
+        return block
+    if c.remat_policy == "dots":
+        raise NotImplementedError(
+            'remat_policy "dots" (save matmul outputs) is not ported yet')
+    raise ValueError(f"unknown remat_policy {c.remat_policy!r}")
+
+
+def forward_hidden(params, tokens, config: LlamaConfig, *, mesh=None):
+    """tokens [B, S] int -> final hidden states [B, S, E] in config.dtype."""
+    c = config
+    _check_supported(c, mesh)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = params["embed"][tokens].to(c.dtype)
+    block = _apply_remat(c, positions, mesh)
+    for l in range(params["layers"]["wq"].shape[0]):
+        x = block(x, _layer(params, l))
+    return rms_norm(x, params["final_norm"], eps=c.norm_eps)
+
+
+def forward(params, tokens, config: LlamaConfig, *, mesh=None):
+    """tokens [B, S] -> logits [B, S, vocab] f32. For inference and tests;
+    training uses ``loss_fn``, which never makes the full logits."""
+    x = forward_hidden(params, tokens, config, mesh=mesh)
+    return torch.einsum("bse,ev->bsv", x, params["lm_head"]).float()
+
+
+def train_flops_per_token(config: LlamaConfig, seq: int) -> float:
+    """Model FLOPs per trained token (6N active-param matmul + causal
+    attention), the numerator of MFU. Embedding gather excluded (standard
+    accounting)."""
+    c = config
+    _check_supported(c, None)
+    mlp = 3 * c.hidden * c.intermediate
+    n_params = c.n_layers * (
+        c.hidden * c.head_dim * (c.n_heads * 2 + c.n_kv_heads * 2) + mlp
+    ) + c.hidden * c.vocab_size
+    attn = 6 * c.n_layers * c.n_heads * c.head_dim * seq  # causal fwd+bwd
+    return 6.0 * n_params + attn
+
+
+class _F32Logits(torch.autograd.Function):
+    """h [C, E] @ w [E, V] with a float32 result from inputs of any float
+    dtype: the JAX loss's ``preferred_element_type=f32``.
+
+    bf16 inputs on the card go to cuBLAS as bf16 operands with a float32
+    output; elsewhere h and w are widened first, which gives the same
+    numbers (products of bf16 values are exact in float32). In the bf16
+    backward the float32 logit gradient is rounded to bf16 for the two
+    products (the JAX transpose keeps it in float32); at float32 the two
+    agree."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        ctx.wide = h.dtype == torch.float32 or h.device.type != "cuda"
+        if ctx.wide:
+            return torch.matmul(h.float(), w.float())
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        if ctx.wide:
+            dh = torch.matmul(g, w.float().t())
+            dw = torch.matmul(h.float().t(), g)
+        else:
+            g = g.to(h.dtype)
+            dh = torch.mm(g, w.t())
+            dw = torch.mm(h.t(), g, out_dtype=torch.float32)
+        return dh.to(h.dtype), dw.to(w.dtype)
+
+
+def _chunk_loss(h, t, m, lm_head):
+    """Masked log-likelihood sum of one chunk of tokens."""
+    logits = _F32Logits.apply(h, lm_head)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, t[:, None].long())[:, 0] - lse
+    return (ll * m).sum()
+
+
+def loss_fn(params, batch, config: LlamaConfig, *, mesh=None,
+            chunk_tokens: int = 512):
+    """Next-token cross entropy. batch: {"tokens": [B, S], "mask": [B, S]
+    (optional)}.
+
+    The lm_head product runs per chunk of ``chunk_tokens`` tokens, each
+    chunk under a checkpoint, so the [B, S, vocab] logits never exist;
+    tokens are padded (mask 0) to a whole number of chunks."""
+    tokens = batch["tokens"]
+    hidden = forward_hidden(params, tokens, config, mesh=mesh)
+    targets = tokens[:, 1:]
+    hidden = hidden[:, :-1]
+    mask = batch.get("mask")
+    mask = (torch.ones(targets.shape, dtype=torch.float32,
+                       device=tokens.device) if mask is None
+            else mask[:, 1:].float())
+
+    b, s, e = hidden.shape
+    n = b * s
+    flat_h = hidden.reshape(n, e)
+    flat_t = targets.reshape(n)
+    flat_m = mask.reshape(n)
+    chunk = min(chunk_tokens, n)
+    if n % chunk:
+        pad = chunk - n % chunk
+        flat_h = F.pad(flat_h, (0, 0, 0, pad))
+        flat_t = F.pad(flat_t, (0, pad))
+        flat_m = F.pad(flat_m, (0, pad))
+        n += pad
+    total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(0, n, chunk):
+        total = total + checkpoint(
+            _chunk_loss, flat_h[i:i + chunk], flat_t[i:i + chunk],
+            flat_m[i:i + chunk], params["lm_head"], use_reentrant=False)
+    return -total / torch.clamp(flat_m.sum(), min=1.0)

@@ -1,18 +1,25 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (paged decode; flash-attention forward, dQ and
+dK/dV) against their plain PyTorch versions, on the card.
 
 CUDA kernels have no interpreter, so these tests need a CUDA device and
 skip without one; on a machine with a card run them with
 
-    python -m pytest tests/test_torch_kernels.py -q
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
 
 Tolerances: f32 1e-4 (sums in another order), bf16 2e-2 (p rounded to
-bf16 before the PV product, outputs rounded to bf16).
+bf16 before the PV product, outputs rounded to bf16); for the flash
+kernels' dQ/dK/dV, relative to the plain result's largest magnitude.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.ops.attention import (flash_attention, flash_dkdv_cuda,
+                                         flash_dkdv_kernel, flash_dkdv_plain,
+                                         flash_dq_cuda, flash_dq_kernel,
+                                         flash_dq_plain, flash_forward_cuda,
+                                         flash_forward_plain, flash_fwd_kernel)
 from ray_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                paged_decode_cuda,
                                                paged_decode_kernel,
@@ -74,3 +81,66 @@ def test_paged_decode_wrapper_counts_and_raises():
         paged_decode_attention(q.half(), kp.half(), vp.half(), bt, pos,
                                page_size=16)
     assert paged_decode_kernel.launches == before + 1
+
+
+# ------------------------------------------------------ flash attention
+# dQ/dK/dV in bf16: one bf16 rounding of dS or P that may fall the other
+# way on either side, then the output rounding; relative to the largest
+# magnitude of the plain version's result.
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(b, hq, hkv, s, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            "cuda", dtype)
+
+    return (randn(b, hq, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d),
+            randn(b, hq, s, d))
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv,d,s", [(4, 1, 16, 96), (2, 2, 32, 130),
+                                        (8, 2, 64, 256), (4, 4, 128, 77)])
+def test_flash_kernels_match_plain(hq, hkv, d, s, causal, dtype):
+    q, k, v, do = _flash_inputs(2, hq, hkv, s, d, dtype)
+    o, lse = flash_forward_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    want_o, want_lse = flash_forward_plain(q, k, v, causal)
+    assert (o.float() - want_o.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    delta = (do.float() * want_o.float()).sum(-1)
+    args = (q, k, v, do, want_lse, delta, causal)
+    dq = flash_dq_cuda(*args)
+    dk, dv = flash_dkdv_cuda(*args)
+    torch.cuda.synchronize()
+    want_dk, want_dv = flash_dkdv_plain(*args)
+    tol = FLASH_GRAD_TOL[dtype]
+    assert _rel_err(dq, flash_dq_plain(*args)) <= tol
+    assert _rel_err(dk, want_dk) <= tol
+    assert _rel_err(dv, want_dv) <= tol
+
+
+@requires_cuda
+def test_flash_attention_counts_launches_and_raises():
+    q, k, v, do = _flash_inputs(1, 4, 2, 64, 32, torch.bfloat16)
+    kernels = (flash_fwd_kernel, flash_dq_kernel, flash_dkdv_kernel)
+    before = [kern.launches for kern in kernels]
+    q.requires_grad_()
+    flash_attention(q, k, v).backward(do)
+    assert [kern.launches for kern in kernels] == [n + 1 for n in before]
+    with pytest.raises(TypeError):
+        flash_attention(q.detach().half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q.detach()[..., :24], k[..., :24], v[..., :24])
+    assert [kern.launches for kern in kernels] == [n + 1 for n in before]
