@@ -6,8 +6,8 @@ Phases, each printing JSON lines:
 
   card          the card's name and power limit (nvidia-smi) and torch's name;
   build         builds every CUDA source in ``ray_tpu_torch/csrc`` (one nvcc
-                per source, all started together): seconds, registers and
-                spills for each;
+                per source, all started together, five sources): seconds,
+                registers and spills for each;
   kernel        the paged decode kernel against its plain PyTorch version on
                 the card, at llama3-1b shapes (uniform and skewed batches,
                 staging rows 0/5/31, both compat modes, pos 0) and at
@@ -17,24 +17,31 @@ Phases, each printing JSON lines:
                 computing the same function (scaled_dot_product_attention
                 over pre-gathered K/V, a yardstick only) at the two llama3-1b
                 batches, beside the least time the card could take;
-  flash_kernel  the flash-attention forward, dQ and dK/dV kernels against
-                their plain versions: llama3-1b shapes (causal at bench.py's
-                8 x 2048, non-causal, f32), head_dim 16/32/128, an odd S,
-                GQA groups of 1 and 4, bf16 and f32;
+  flash_kernel  the flash-attention kernels of each dtype's route
+                (``flash_route``: bf16 takes the sm90 forward and dK/dV and
+                the simt dQ, f32 the simt kernels) against their plain
+                versions: llama3-1b shapes (causal at bench.py's 8 x 2048,
+                non-causal, f32), and in bf16 every head_dim 16/32/64/128
+                with GQA groups 1 and 4, S 1/100/257/1000, causal and not;
+                at the main shape the simt forward and dK/dV on bf16 too;
   flash_time    each flash kernel at [8, 32, 2048, 64] / [8, 8, 2048, 64]
                 bf16, causal, beside its plain version, its bound and SDPA
                 (forward, and its backward for dQ and dK/dV; a yardstick
-                only, over K/V repeated to the q heads beforehand);
+                only, over K/V repeated to the q heads beforehand); the
+                sm90 forward and dK/dV also beside the simt kernel they
+                replace on bf16 (``previous_ms``), which each must beat 4x;
   train         the training main path: llama3-1b with random weights,
                 batch 8 x 2048, remat "attn", chunked loss, autograd and an
                 SGD update, 2 warm-up and 5 timed steps on one repeated
                 batch, with each flash kernel's launch count read around
-                the run (16 a step each);
+                the run (16 a step each for the sm90 forward and dK/dV and
+                the simt dQ, 0 for the simt forward and dK/dV);
   train_profile one more step under torch.profiler: the card's idle share
-                and where its time goes;
+                and where its time goes, per flash kernel;
   train_parity  f32 loss and every gradient of the kernel path
-                (attn_impl="flash") equal the plain path's ("reference") at
-                llama3-1b widths and 2 layers;
+                (attn_impl="flash", the simt kernels) equal the plain
+                path's ("reference") at llama3-1b widths and 2 layers, with
+                the launch counts read around it;
   serve         the serving main path: a llama3-1b ``InferenceEngine`` with
                 random weights serves 8 greedy requests (chunked prefill,
                 mixed dispatch, a prefix hit), with the paged kernel's launch
@@ -67,11 +74,15 @@ from ray_tpu_torch.llm import InferenceEngine, Request, resolve_device
 from ray_tpu_torch.models.llama import (PRESETS, init_params, loss_fn,
                                         train_flops_per_token)
 from ray_tpu_torch.ops.attention import (flash_dkdv_cuda, flash_dkdv_kernel,
-                                         flash_dkdv_plain, flash_dq_cuda,
+                                         flash_dkdv_plain,
+                                         flash_dkdv_sm90_cuda,
+                                         flash_dkdv_sm90_kernel, flash_dq_cuda,
                                          flash_dq_kernel, flash_dq_plain,
                                          flash_forward_cuda,
                                          flash_forward_plain,
-                                         flash_fwd_kernel)
+                                         flash_forward_sm90_cuda,
+                                         flash_fwd_kernel,
+                                         flash_fwd_sm90_kernel, flash_route)
 from ray_tpu_torch.ops.paged_attention import (paged_decode_cuda,
                                                paged_decode_kernel,
                                                paged_decode_layer_args,
@@ -277,9 +288,49 @@ FLASH_MAIN = (8, 32, 8, 2048, 64)
 # then the output's rounding).
 FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
-FLASH_KERNELS = {"flash_attention_fwd": flash_fwd_kernel,
-                 "flash_attention_dq": flash_dq_kernel,
-                 "flash_attention_dkdv": flash_dkdv_kernel}
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashKernel:
+    step: str        # "fwd" | "dq" | "dkdv"
+    variant: str     # "sm90" (bf16 wgmma, TMA) | "simt" (float32 FMAs)
+    kernel: object   # its CudaKernel (library, entry point, launch count)
+    cuda: object     # its wrapper
+    source: str
+    tpu_line: int    # the TPU kernel's body in ray_tpu/ops/attention.py
+
+
+FLASH_KERNELS = {
+    "flash_attention_fwd_sm90": FlashKernel(
+        "fwd", "sm90", flash_fwd_sm90_kernel, flash_forward_sm90_cuda,
+        "flash_fwd_sm90.cu", 48),
+    "flash_attention_fwd_simt": FlashKernel(
+        "fwd", "simt", flash_fwd_kernel, flash_forward_cuda, "flash_fwd.cu", 48),
+    "flash_attention_dq": FlashKernel(
+        "dq", "simt", flash_dq_kernel, flash_dq_cuda, "flash_bwd.cu", 184),
+    "flash_attention_dkdv_sm90": FlashKernel(
+        "dkdv", "sm90", flash_dkdv_sm90_kernel, flash_dkdv_sm90_cuda,
+        "flash_dkdv_sm90.cu", 226),
+    "flash_attention_dkdv_simt": FlashKernel(
+        "dkdv", "simt", flash_dkdv_kernel, flash_dkdv_cuda, "flash_bwd.cu", 226),
+}
+
+
+def flash_kernel_of(step: str, dtype) -> str:
+    """The name of the kernel ``flash_attention`` launches for ``step`` on
+    a CUDA tensor of ``dtype``."""
+    variant = flash_route(dtype)[step]
+    return next(n for n, fk in FLASH_KERNELS.items()
+                if fk.step == step and fk.variant == variant)
+
+
+def flash_launches() -> dict:
+    return {name: fk.kernel.launches for name, fk in FLASH_KERNELS.items()}
+
+
+def reset_flash_launches() -> None:
+    for fk in FLASH_KERNELS.values():
+        fk.kernel.launches = 0
 
 
 def flash_inputs(b, hq, hkv, s, d, dtype, seed: int = 0) -> tuple:
@@ -295,7 +346,7 @@ def flash_inputs(b, hq, hkv, s, d, dtype, seed: int = 0) -> tuple:
 
 def flash_cases() -> list:
     bf16, f32 = torch.bfloat16, torch.float32
-    return [
+    cases = [
         # name, (b, hq, hkv, s, d), causal, dtype
         ("llama3-1b_causal", FLASH_MAIN, True, bf16),
         ("llama3-1b_noncausal_b2", (2, 32, 8, 2048, 64), False, bf16),
@@ -307,6 +358,16 @@ def flash_cases() -> list:
         ("d128_rep4_s1000", (1, 32, 8, 1000, 128), True, bf16),
         ("d128_rep4_s1000", (1, 32, 8, 1000, 128), True, f32),
     ]
+    # bf16 grid for the sm90 kernels: one key, a sub-tile S, an odd S and
+    # a ragged multi-tile S at every head_dim and both GQA groups
+    for d in (16, 32, 64, 128):
+        for hq, hkv in ((4, 4), (8, 2)):
+            for s in (1, 100, 257, 1000):
+                for causal in (True, False):
+                    cases.append((f"grid_d{d}_rep{hq // hkv}_s{s}"
+                                  f"{'' if causal else '_noncausal'}",
+                                  (2, hq, hkv, s, d), causal, bf16))
+    return cases
 
 
 def _errs(got, want) -> tuple[float, float]:
@@ -315,54 +376,88 @@ def _errs(got, want) -> tuple[float, float]:
     return err, err / max(want.float().abs().max().item(), 1e-30)
 
 
+def _grad_errs(got: dict, want: dict, sk: int) -> dict:
+    """Each gradient in ``got``'s (max abs error, relative error) against
+    ``want`` (the plain dq, dk and dv of the case). With one key
+    (sk == 1) softmax has no gradient, so dQ and dK are exactly 0 and both
+    the kernel's and the plain version's values are rounding noise (~1e-7
+    beside a dV of ~3): there they are held to 0, relative to the largest
+    plain gradient of the case."""
+    errs = {g: _errs(got[g], want[g]) for g in got}
+    if sk == 1:
+        scale = max(t.float().abs().max().item() for t in want.values())
+        for g in {"dq", "dk"} & got.keys():
+            err = got[g].float().abs().max().item()
+            errs[g] = (err, err / max(scale, 1e-30))
+    return errs
+
+
 def phase_flash_kernel() -> dict:
-    """Every case; returns the largest abs errors at the main case, per
-    kernel."""
+    """Every case, through the kernels of its dtype's route; returns the
+    largest abs errors at the main case, per kernel (the simt forward and
+    dK/dV are also held against the plain versions there, on bf16)."""
     main = {}
     for name, shape, causal, dtype in flash_cases():
         q, k, v, do = flash_inputs(*shape, dtype)
-        o, lse = flash_forward_cuda(q, k, v, causal)
-        torch.cuda.synchronize()
+        kern = {step: flash_kernel_of(step, dtype)
+                for step in ("fwd", "dq", "dkdv")}
+        extra = ([n for n in FLASH_KERNELS if n not in kern.values()]
+                 if shape == FLASH_MAIN else [])
         want_o, want_lse = flash_forward_plain(q, k, v, causal)
         # the backward kernels take the plain forward's lse and δ, so each
         # is held against its plain version on identical inputs
         delta = (do.float() * want_o.float()).sum(-1)
         args = (q, k, v, do, want_lse, delta, causal)
-        dq = flash_dq_cuda(*args)
-        dk, dv = flash_dkdv_cuda(*args)
-        torch.cuda.synchronize()
-        want_dq = flash_dq_plain(*args)
-        want_dk, want_dv = flash_dkdv_plain(*args)
-        errs = {"o": _errs(o, want_o), "lse": _errs(lse, want_lse),
-                "dq": _errs(dq, want_dq), "dk": _errs(dk, want_dk),
-                "dv": _errs(dv, want_dv)}
+        want = {"dq": flash_dq_plain(*args)}
+        want["dk"], want["dv"] = flash_dkdv_plain(*args)
+        errs = {}
+        for kname in [*kern.values(), *extra]:
+            fk = FLASH_KERNELS[kname]
+            if fk.step == "fwd":
+                o, lse = fk.cuda(q, k, v, causal)
+                torch.cuda.synchronize()
+                errs[kname] = {"o": _errs(o, want_o),
+                               "lse": _errs(lse, want_lse)}
+            elif fk.step == "dq":
+                got = {"dq": fk.cuda(*args)}
+                torch.cuda.synchronize()
+                errs[kname] = _grad_errs(got, want, shape[3])
+            else:
+                got = dict(zip(("dk", "dv"), fk.cuda(*args)))
+                torch.cuda.synchronize()
+                errs[kname] = _grad_errs(got, want, shape[3])
         # the plain results' largest magnitudes: an error of 0 (the same
         # sums in the same order) is not an all-zero result
-        ref_max = {g: t.float().abs().max().item() for g, t in
-                   (("dq", want_dq), ("dk", want_dk), ("dv", want_dv))}
-        del q, k, v, do, o, lse, want_o, want_lse, delta, args, dq, dk, dv
-        del want_dq, want_dk, want_dv
+        ref_max = {g: t.float().abs().max().item() for g, t in want.items()}
+        del q, k, v, do, want_o, want_lse, delta, args, want
         torch.cuda.empty_cache()
         tol_o, tol_g = TOLERANCE[dtype], FLASH_GRAD_TOL[dtype]
+        flat = {f"{w}": e for kname in errs for w, e in errs[kname].items()
+                if kname in kern.values()}
         emit("flash_kernel", case=name, shape=list(shape), causal=causal,
              dtype=str(dtype).split(".")[-1],
-             o_max_abs_err=errs["o"][0], lse_max_abs_err=errs["lse"][0],
-             **{f"{g}_max_abs_err": errs[g][0] for g in ("dq", "dk", "dv")},
-             **{f"{g}_rel_err": errs[g][1] for g in ("dq", "dk", "dv")},
+             kernels={s: FLASH_KERNELS[n].variant for s, n in kern.items()},
+             o_max_abs_err=flat["o"][0], lse_max_abs_err=flat["lse"][0],
+             **{f"{g}_max_abs_err": flat[g][0] for g in ("dq", "dk", "dv")},
+             **{f"{g}_rel_err": flat[g][1] for g in ("dq", "dk", "dv")},
              **{f"{g}_plain_max_abs": m for g, m in ref_max.items()},
+             also_checked={n: {w: e[0] for w, e in errs[n].items()}
+                           for n in extra},
              o_tolerance=tol_o, lse_tolerance=LSE_TOL, grad_rel_tolerance=tol_g)
-        bad = [g for g in ("dq", "dk", "dv") if not errs[g][1] <= tol_g]
-        if not errs["o"][0] <= tol_o:
-            bad.append("o")
-        if not errs["lse"][0] <= LSE_TOL:
-            bad.append("lse")
+        bad = []
+        for kname, e in errs.items():
+            bad += [f"{kname}:{g}" for g in ("dq", "dk", "dv")
+                    if g in e and not e[g][1] <= tol_g]
+            if "o" in e and not e["o"][0] <= tol_o:
+                bad.append(f"{kname}:o")
+            if "lse" in e and not e["lse"][0] <= LSE_TOL:
+                bad.append(f"{kname}:lse")
         if bad:
             raise AssertionError(f"flash case {name} {dtype}: {bad} out of "
                                  f"tolerance: {errs}")
         if shape == FLASH_MAIN:
-            main = {"flash_attention_fwd": errs["o"][0],
-                    "flash_attention_dq": errs["dq"][0],
-                    "flash_attention_dkdv": max(errs["dk"][0], errs["dv"][0])}
+            main = {n: max(err[0] for w, err in e.items() if w != "lse")
+                    for n, e in errs.items()}
     return main
 
 
@@ -383,9 +478,12 @@ def _flash_bound(kind: str, b, hq, hkv, s, d, el: int) -> tuple[float, str]:
 
 
 def phase_flash_time() -> dict:
+    """Every flash kernel at the main shape in bf16, per kernel name; the
+    kernels of the bf16 route (``flash_route``) carry the simt kernel they
+    replace as ``previous_ms``, and must be at least 4x faster than it."""
     b, hq, hkv, s, d = FLASH_MAIN
     q, k, v, do = flash_inputs(*FLASH_MAIN, torch.bfloat16, seed=1)
-    o, lse = flash_forward_cuda(q, k, v, True)
+    o, lse = flash_forward_sm90_cuda(q, k, v, True)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, True)
     # the yardstick: SDPA over K/V repeated to the q heads beforehand
@@ -397,31 +495,36 @@ def phase_flash_time() -> dict:
     library_fwd = _time_ms(lambda: sdpa(q, kr, vr, is_causal=True))
     library_bwd = _time_ms(lambda: torch.autograd.grad(
         out, (qg, kg, vg), do, retain_graph=True))
-    calls = {
-        "flash_attention_fwd": ("fwd", lambda: flash_forward_cuda(q, k, v, True),
-                                lambda: flash_forward_plain(q, k, v, True),
-                                library_fwd),
-        "flash_attention_dq": ("dq", lambda: flash_dq_cuda(*args),
-                               lambda: flash_dq_plain(*args), library_bwd),
-        "flash_attention_dkdv": ("dkdv", lambda: flash_dkdv_cuda(*args),
-                                 lambda: flash_dkdv_plain(*args), library_bwd),
-    }
+    step_args = {"fwd": (q, k, v, True), "dq": args, "dkdv": args}
+    plain = {"fwd": flash_forward_plain, "dq": flash_dq_plain,
+             "dkdv": flash_dkdv_plain}
+    library = {"fwd": library_fwd, "dq": library_bwd, "dkdv": library_bwd}
+    plain_ms = {step: _time_ms(lambda: fn(*step_args[step]), iters=5)
+                for step, fn in plain.items()}
+    ms = {name: _time_ms(lambda: fk.cuda(*step_args[fk.step]))
+          for name, fk in FLASH_KERNELS.items()}
     out_times = {}
-    for name, (kind, kernel, plain, library_ms) in calls.items():
-        ms = _time_ms(kernel)
-        plain_ms = _time_ms(plain, iters=5)
-        bound_ms, bound_by = _flash_bound(kind, b, hq, hkv, s, d, 2)
-        out_times[name] = {"ms": ms, "plain_ms": plain_ms,
+    for name, fk in FLASH_KERNELS.items():
+        bound_ms, bound_by = _flash_bound(fk.step, b, hq, hkv, s, d, 2)
+        out_times[name] = {"ms": ms[name], "plain_ms": plain_ms[fk.step],
                            "bound_ms": bound_ms, "bound_by": bound_by,
-                           "library_ms": library_ms}
-        emit("flash_time", kernel=name, shape=[b, hq, hkv, s, d],
-             causal=True, dtype="bfloat16",
+                           "library_ms": library[fk.step]}
+        if fk.variant == "sm90":
+            out_times[name]["previous_ms"] = ms[flash_kernel_of(
+                fk.step, torch.float32)]
+        emit("flash_time", kernel=name, variant=fk.variant,
+             shape=[b, hq, hkv, s, d], causal=True, dtype="bfloat16",
              library_call="scaled_dot_product_attention"
-             + (" forward" if kind == "fwd" else
+             + (" forward" if fk.step == "fwd" else
                 " backward (dQ, dK and dV together)"),
              **out_times[name])
-    del q, k, v, do, o, lse, delta, args, kr, vr, qg, kg, vg, out
+    del q, k, v, do, o, lse, delta, args, step_args, kr, vr, qg, kg, vg, out
     torch.cuda.empty_cache()
+    slow = {n: t for n, t in out_times.items()
+            if "previous_ms" in t and not t["ms"] <= t["previous_ms"] / 4}
+    if slow:
+        raise AssertionError(f"sm90 kernels not 4x faster than the simt "
+                             f"kernels they replace: {slow}")
     return out_times
 
 
@@ -452,7 +555,9 @@ def _sgd_step(params: dict, batch: dict, cfg, lr: float) -> torch.Tensor:
 
 
 def phase_train(seed: int = 0) -> dict:
-    """Returns each flash kernel's launch count over the trained steps."""
+    """Returns each flash kernel's launch count over the trained steps:
+    ``n_layers`` a step for the kernels ``flash_route`` names for bf16, 0
+    for the others."""
     device = resolve_device(None)
     cfg = dataclasses.replace(PRESETS["llama3-1b"], remat_policy="attn")
     torch.cuda.reset_peak_memory_stats()
@@ -465,8 +570,7 @@ def phase_train(seed: int = 0) -> dict:
     batch = {"tokens": tokens}
     n_params = sum(p.numel() for p in _leaves(params))
 
-    for kern in FLASH_KERNELS.values():
-        kern.launches = 0
+    reset_flash_launches()
     losses, step_s = [], []
     for _ in range(TRAIN_WARMUP):
         losses.append(_sgd_step(params, batch, cfg, TRAIN_LR).item())
@@ -478,9 +582,13 @@ def phase_train(seed: int = 0) -> dict:
         step_s.append(time.perf_counter() - t_step)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: kern.launches for name, kern in FLASH_KERNELS.items()}
+    launches = flash_launches()
 
     steps = TRAIN_WARMUP + TRAIN_STEPS
+    on_route = {flash_kernel_of(step, cfg.dtype)
+                for step in ("fwd", "dq", "dkdv")}
+    expected = {name: cfg.n_layers * steps if name in on_route else 0
+                for name in FLASH_KERNELS}
     tokens_per_sec = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt
     flops_per_token = train_flops_per_token(cfg, TRAIN_SEQ)
     emit("train", preset="llama3-1b", optimizer="sgd", lr=TRAIN_LR,
@@ -490,15 +598,16 @@ def phase_train(seed: int = 0) -> dict:
          tokens_per_sec=tokens_per_sec, train_flops_per_token=flops_per_token,
          mfu=tokens_per_sec * flops_per_token / PEAK_FLOPS[torch.bfloat16],
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-         kernel_launches=launches)
+         kernel_launches=launches, expected_launches=expected,
+         launches_per_step={n: c / steps for n, c in launches.items()})
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall on a repeated batch: {losses}")
-    for name, n in launches.items():
-        if n != cfg.n_layers * steps:
-            raise AssertionError(f"{name}: {n} launches != {cfg.n_layers} "
-                                 f"layers x {steps} steps")
+    if launches != expected:
+        raise AssertionError(f"flash launches {launches} != {expected} "
+                             f"({cfg.n_layers} layers x {steps} steps on the "
+                             f"{cfg.dtype} route)")
     profile_train_step(params, batch, cfg)
     del params, batch
     torch.cuda.empty_cache()
@@ -531,9 +640,12 @@ def profile_train_step(params: dict, batch: dict, cfg) -> None:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
             n_kernels += 1
     busy_ms = sum(by_name.values()) / 1e3
+    # Each kernel's device name holds its C entry point's name with
+    # "_launch" replaced by "_kernel" (flash_fwd_sm90_kernel, ...).
     flash_ms = {name: sum(t for n, t in by_name.items()
-                          if kern.function.replace("_launch", "_kernel") in n)
-                / 1e3 for name, kern in FLASH_KERNELS.items()}
+                          if fk.kernel.function.replace("_launch", "_kernel")
+                          in n) / 1e3
+                for name, fk in FLASH_KERNELS.items()}
     gemm_ms = sum(t for n, t in by_name.items()
                   if any(w in n for w in GEMM_NAMES)) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -547,9 +659,10 @@ def profile_train_step(params: dict, batch: dict, cfg) -> None:
          top_kernels_ms=[[n[:80], t / 1e3] for n, t in top])
 
 
-def phase_train_parity(seed: int = 1) -> None:
+def phase_train_parity(seed: int = 1) -> dict:
     """f32 loss and gradients, kernel path against the plain path, at
-    llama3-1b widths, 2 layers, batch 2 x 256."""
+    llama3-1b widths, 2 layers, batch 2 x 256. Returns the flash kernels'
+    launch counts over the kernel path's step (the f32 route's)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(PRESETS["llama3-1b"], n_layers=2,
@@ -563,10 +676,14 @@ def phase_train_parity(seed: int = 1) -> None:
         params = {k: ({n: w.clone().requires_grad_() for n, w in v.items()}
                       if isinstance(v, dict) else v.clone().requires_grad_())
                   for k, v in base.items()}
+        reset_flash_launches()
         loss = loss_fn(params, {"tokens": tokens},
                        dataclasses.replace(cfg, attn_impl=impl),
                        chunk_tokens=TRAIN_CHUNK)
         loss.backward()
+        torch.cuda.synchronize()
+        if impl == "flash":
+            launches = flash_launches()
         grads = {k: v.grad for k, v in params.items() if k != "layers"}
         grads.update({f"layers/{n}": w.grad
                       for n, w in params["layers"].items()})
@@ -576,7 +693,13 @@ def phase_train_parity(seed: int = 1) -> None:
     grad_errs = {n: _errs(g_k[n], g_r[n])[1] for n in g_r}
     emit("train_parity", dtype="float32", layers=2, batch=[2, 256],
          loss_flash=loss_k, loss_reference=loss_r, loss_rel_err=loss_err,
-         loss_tolerance=1e-5, grad_rel_err=grad_errs, grad_tolerance=1e-4)
+         loss_tolerance=1e-5, grad_rel_err=grad_errs, grad_tolerance=1e-4,
+         kernel_launches=launches)
+    on_route = {flash_kernel_of(step, cfg.dtype)
+                for step in ("fwd", "dq", "dkdv")}
+    if any((n > 0) != (name in on_route) for name, n in launches.items()):
+        raise AssertionError(f"f32 flash launches {launches}: expected only "
+                             f"{sorted(on_route)}")
     if not loss_err <= 1e-5:
         raise AssertionError(f"train parity: loss {loss_k} vs {loss_r}")
     bad = {n: e for n, e in grad_errs.items() if not e <= 1e-4}
@@ -584,6 +707,7 @@ def phase_train_parity(seed: int = 1) -> None:
         raise AssertionError(f"train parity: gradients out of tolerance {bad}")
     del base, out
     torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------------------- serve
@@ -739,7 +863,9 @@ def phase_parity(seed: int = 1) -> None:
 
 def _build_all() -> None:
     """One nvcc per CUDA source, all started together."""
-    kernels = [paged_decode_kernel, flash_fwd_kernel, flash_dq_kernel]
+    # one library per source: flash_bwd.cu holds dQ and the simt dK/dV
+    kernels = [paged_decode_kernel, flash_fwd_kernel, flash_dq_kernel,
+               flash_fwd_sm90_kernel, flash_dkdv_sm90_kernel]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda kern: kern.build(), kernels))
@@ -771,8 +897,8 @@ def main() -> int:
     times = phase_time()
     flash_err = phase_flash_kernel()
     flash_times = phase_flash_time()
-    flash_launches = phase_train()
-    phase_train_parity()
+    train_launches = phase_train()
+    parity_launches = phase_train_parity()
     launches = phase_serve()
     phase_parity()
     t = times["uniform"]
@@ -781,16 +907,16 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/paged_decode.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:103",
         "launches": launches, "max_abs_err": max_err, **t}]
-    replaces = {"flash_attention_fwd": ("flash_fwd.cu", 48),
-                "flash_attention_dq": ("flash_bwd.cu", 184),
-                "flash_attention_dkdv": ("flash_bwd.cu", 226)}
-    for name, (source, line) in replaces.items():
+    for name, fk in FLASH_KERNELS.items():
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"ray_tpu_torch/csrc/{source}",
-            "replaces": f"ray_tpu/ops/attention.py:{line}",
-            "launches": flash_launches[name], "max_abs_err": flash_err[name],
-            **flash_times[name]})
+            "name": name, "route": "cuda", "variant": fk.variant,
+            "source": f"ray_tpu_torch/csrc/{fk.source}",
+            "replaces": f"ray_tpu/ops/attention.py:{fk.tpu_line}",
+            # on the bf16 train path; the simt forward and dK/dV run on
+            # the f32 path (train_parity) instead
+            "launches": train_launches[name],
+            "launches_f32_train_parity": parity_launches[name],
+            "max_abs_err": flash_err[name], **flash_times[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ A second package beside ``ray_tpu``. It keeps the JAX package's module
 layout, names, parameter tree and page-pool layouts, and replaces its
 Pallas TPU kernels on these paths with CUDA kernels written for sm_90a
 (``csrc/``): the paged decode kernel (serving) and the flash-attention
-forward, dQ and dK/dV kernels (training). It imports neither JAX nor
+forward, dQ and dK/dV kernels (training; bf16 runs the forward and dK/dV
+on wgmma fed by TMA, float32 on exact FMAs). It imports neither JAX nor
 ``ray_tpu``.
 
 Entry points: ``ray_tpu_torch.llm.InferenceEngine``, on the CUDA card by

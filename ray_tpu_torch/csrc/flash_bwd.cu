@@ -25,8 +25,10 @@
 // and the caller sums them). Ragged tails are zero-filled and masked.
 //
 // Bound on this card: operations (three 64 x 64 x D products per tile pair
-// for dQ, four for dK/dV). As in the forward, this first version runs them
-// as float32 FMAs from shared memory, not on the tensor cores.
+// for dQ, four for dK/dV). As in flash_fwd.cu, they run as float32 FMAs
+// from shared memory, not on the tensor cores. dQ serves both routes; the
+// dK/dV kernel here is the float32 route's, and bf16 takes
+// flash_dkdv_sm90.cu (wgmma, TMA).
 
 #include "flash_common.cuh"
 

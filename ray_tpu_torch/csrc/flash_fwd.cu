@@ -21,11 +21,10 @@
 //
 // Bound on this card: operations. At llama3-1b training shapes (S 2048,
 // D 64) a tile does 2 * 64 * 64 * 64 * 2 flops per 16 KB of K/V, far above
-// the ~295 flops per byte ridge. This first kernel runs those products as
+// the ~295 flops per byte ridge. This kernel runs those products as
 // float32 FMAs from shared memory (4 x 4 register blocking, 16-byte shared
-// loads), not on the tensor cores: it aims at being right. mma.sync or
-// wgmma on bf16 tiles, cp.async/TMA double buffering and a split of the
-// causal triangle for load balance are later work.
+// loads), not on the tensor cores: exact float32 products. It is the
+// forward of the float32 route; bf16 takes flash_fwd_sm90.cu (wgmma, TMA).
 
 #include "flash_common.cuh"
 

@@ -3,10 +3,17 @@ function.
 
 The port of ``ray_tpu/ops/attention.py``. Its three Pallas TPU kernels
 (``_flash_kernel``, ``_bwd_dq_kernel``, ``_bwd_dkdv_kernel``) become CUDA
-C++ kernels written for Hopper, ``csrc/flash_fwd.cu`` (forward) and
-``csrc/flash_bwd.cu`` (dQ, dK/dV). ``flash_attention`` keeps the JAX
-function's layouts: q [B, Hq, S, D], k/v [B, Hkv, S, D], GQA when
-Hq > Hkv, output in q's dtype.
+C++ kernels written for Hopper, on two routes chosen by dtype alone
+(``flash_route``):
+
+  * bfloat16: ``csrc/flash_fwd_sm90.cu`` (forward) and
+    ``csrc/flash_dkdv_sm90.cu`` (dK/dV), bf16 ``wgmma`` products fed by
+    TMA, and the dQ kernel of ``csrc/flash_bwd.cu``;
+  * float32: ``csrc/flash_fwd.cu`` (forward) and ``csrc/flash_bwd.cu``
+    (dQ, dK/dV), exact float32 FMAs ("simt").
+
+``flash_attention`` keeps the JAX function's layouts: q [B, Hq, S, D],
+k/v [B, Hkv, S, D], GQA when Hq > Hkv, output in q's dtype.
 
 Each kernel has a plain PyTorch version here that computes what its body
 computes, rounding at the same places:
@@ -61,6 +68,24 @@ flash_dq_kernel = CudaKernel(
 flash_dkdv_kernel = CudaKernel(
     "flash_bwd.cu", "flash_dkdv_launch",
     [_P] * 8 + _SHAPE_ARGS)                        # q, k, v, dO, lse, δ, dk, dv
+flash_fwd_sm90_kernel = CudaKernel(
+    "flash_fwd_sm90.cu", "flash_fwd_sm90_launch",
+    [_P, _P, _P, _P, _P] + _SHAPE_ARGS)            # q, k, v, o, lse
+flash_dkdv_sm90_kernel = CudaKernel(
+    "flash_dkdv_sm90.cu", "flash_dkdv_sm90_launch",
+    [_P] * 8 + _SHAPE_ARGS)                        # q, k, v, dO, lse, δ, dk, dv
+
+
+def flash_route(dtype: torch.dtype) -> dict:
+    """Which kernel each step of ``flash_attention`` launches on a CUDA
+    tensor of ``dtype``: ``"sm90"`` (bf16 wgmma, TMA) or ``"simt"`` (exact
+    float32 FMAs). Decided by dtype alone; raises TypeError for a dtype
+    no kernel takes."""
+    if dtype == torch.bfloat16:
+        return {"fwd": "sm90", "dq": "simt", "dkdv": "sm90"}
+    if dtype == torch.float32:
+        return {"fwd": "simt", "dq": "simt", "dkdv": "simt"}
+    raise TypeError(f"flash kernels take float32 or bfloat16, not {dtype}")
 
 
 def _scale(d: int, sm_scale: float | None) -> float:
@@ -183,6 +208,16 @@ def _check_kernel_inputs(named: dict, q, k) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _check_sm90(q) -> None:
+    """What the sm90 kernels take beyond ``_check_kernel_inputs``:
+    bfloat16 on a CUDA device. Checked before anything is built."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the sm90 flash kernels take bfloat16, not {q.dtype}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the sm90 flash kernels take CUDA tensors, not "
+                         f"{q.device}")
+
+
 def _launch(kernel: CudaKernel, q, k, ptrs: list, causal: bool,
             scale: float) -> None:
     b, hq, sq, d = q.shape
@@ -196,21 +231,39 @@ def _launch(kernel: CudaKernel, q, k, ptrs: list, causal: bool,
     kernel.launches += 1
 
 
-def flash_forward_cuda(q, k, v, causal: bool = True,
-                       sm_scale: float | None = None):
-    """Launch the forward kernel on the current stream: ``(o, lse)`` as
-    ``flash_forward_plain`` returns them. Raises on any input the kernel
-    does not take, and if the launch is refused."""
+def _forward(kernel: CudaKernel, q, k, v, causal, sm_scale):
     b, hq, sq, d = q.shape
-    _check_kernel_inputs({"q": (q, q.dtype, q.shape),
-                          "k": (k, q.dtype, k.shape),
-                          "v": (v, q.dtype, k.shape)}, q, k)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    _launch(flash_fwd_kernel, q, k,
+    _launch(kernel, q, k,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr()], causal, _scale(d, sm_scale))
     return o, lse
+
+
+def _check_fwd(q, k, v) -> None:
+    _check_kernel_inputs({"q": (q, q.dtype, q.shape),
+                          "k": (k, q.dtype, k.shape),
+                          "v": (v, q.dtype, k.shape)}, q, k)
+
+
+def flash_forward_cuda(q, k, v, causal: bool = True,
+                       sm_scale: float | None = None):
+    """Launch the float32-FMA ("simt") forward kernel on the current
+    stream: ``(o, lse)`` as ``flash_forward_plain`` returns them, for
+    float32 or bfloat16. Raises on any input the kernel does not take, and
+    if the launch is refused."""
+    _check_fwd(q, k, v)
+    return _forward(flash_fwd_kernel, q, k, v, causal, sm_scale)
+
+
+def flash_forward_sm90_cuda(q, k, v, causal: bool = True,
+                            sm_scale: float | None = None):
+    """Launch the bf16 wgmma forward kernel (arguments and results as for
+    ``flash_forward_cuda``; bfloat16 CUDA tensors only)."""
+    _check_fwd(q, k, v)
+    _check_sm90(q)
+    return _forward(flash_fwd_sm90_kernel, q, k, v, causal, sm_scale)
 
 
 def _check_bwd(q, k, v, do, lse, delta) -> None:
@@ -235,24 +288,49 @@ def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool = True,
     return dq
 
 
-def flash_dkdv_cuda(q, k, v, do, lse, delta, causal: bool = True,
-                    sm_scale: float | None = None):
-    """Launch the dK/dV kernel (arguments as for ``flash_dkdv_plain``)."""
-    _check_bwd(q, k, v, do, lse, delta)
+def _dkdv(kernel: CudaKernel, q, k, v, do, lse, delta, causal, sm_scale):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(flash_dkdv_kernel, q, k,
+    _launch(kernel, q, k,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()],
             causal, _scale(q.shape[-1], sm_scale))
     return dk, dv
 
 
-def _on(q: torch.Tensor, plain, cuda):
-    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+def flash_dkdv_cuda(q, k, v, do, lse, delta, causal: bool = True,
+                    sm_scale: float | None = None):
+    """Launch the float32-FMA ("simt") dK/dV kernel (arguments as for
+    ``flash_dkdv_plain``; float32 or bfloat16)."""
+    _check_bwd(q, k, v, do, lse, delta)
+    return _dkdv(flash_dkdv_kernel, q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def flash_dkdv_sm90_cuda(q, k, v, do, lse, delta, causal: bool = True,
+                         sm_scale: float | None = None):
+    """Launch the bf16 wgmma dK/dV kernel (arguments as for
+    ``flash_dkdv_plain``; bfloat16 CUDA tensors only)."""
+    _check_bwd(q, k, v, do, lse, delta)
+    _check_sm90(q)
+    return _dkdv(flash_dkdv_sm90_kernel, q, k, v, do, lse, delta, causal,
+                 sm_scale)
+
+
+_CUDA = {("fwd", "simt"): flash_forward_cuda,
+         ("fwd", "sm90"): flash_forward_sm90_cuda,
+         ("dq", "simt"): flash_dq_cuda,
+         ("dkdv", "simt"): flash_dkdv_cuda,
+         ("dkdv", "sm90"): flash_dkdv_sm90_cuda}
+
+
+def _on(q: torch.Tensor, step: str):
+    """The plain version of ``step`` for a CPU tensor, the kernel of
+    ``flash_route`` for a CUDA one."""
     if q.device.type == "cpu":
-        return plain
+        # looked up at call time, so a test may wrap a plain version
+        return {"fwd": flash_forward_plain, "dq": flash_dq_plain,
+                "dkdv": flash_dkdv_plain}[step]
     if q.device.type == "cuda":
-        return cuda
+        return _CUDA[step, flash_route(q.dtype)[step]]
     raise ValueError(f"no flash attention path for device {q.device}")
 
 
@@ -262,8 +340,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        o, lse = _on(q, flash_forward_plain, flash_forward_cuda)(
-            q, k, v, causal, sm_scale)
+        o, lse = _on(q, "fwd")(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o
@@ -276,8 +353,8 @@ class _FlashAttention(torch.autograd.Function):
         # the kernels (ray_tpu/ops/attention.py:290)
         delta = (do.float() * o.float()).sum(dim=-1)
         args = (q, k, v, do, lse, delta, ctx.causal, ctx.sm_scale)
-        dq = _on(q, flash_dq_plain, flash_dq_cuda)(*args)
-        dk, dv = _on(q, flash_dkdv_plain, flash_dkdv_cuda)(*args)
+        dq = _on(q, "dq")(*args)
+        dk, dv = _on(q, "dkdv")(*args)
         return dq, dk, dv, None, None
 
 
@@ -285,7 +362,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     sm_scale: float | None = None):
     """Tiled attention. q [B, Hq, S, D], k/v [B, Hkv, S, D] with Hq a
     multiple of Hkv; differentiable in q, k and v. CPU tensors run the
-    kernels' plain versions, CUDA tensors the kernels."""
+    kernels' plain versions, CUDA tensors the kernels ``flash_route``
+    names for their dtype."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash_attention takes q [B, Hq, S, D] and k, v "
                          f"[B, Hkv, S, D], not {tuple(q.shape)}, "

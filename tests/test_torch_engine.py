@@ -283,6 +283,8 @@ def test_import_loads_no_jax_and_no_ray_tpu():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.llm.engine, "
             "ray_tpu_torch.ops.paged_attention, ray_tpu_torch._cuda, "
             "ray_tpu_torch.ops.attention, ray_tpu_torch.models.llama\n"
+            "from ray_tpu_torch.ops.attention import (flash_route, "
+            "flash_forward_sm90_cuda, flash_dkdv_sm90_cuda)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (paged decode; flash-attention forward, dQ and
-dK/dV) against their plain PyTorch versions, on the card.
+dK/dV, on both routes: the bf16 wgmma forward and dK/dV, and the float32
+FMA kernels) against their plain PyTorch versions, on the card.
 
 CUDA kernels have no interpreter, so these tests need a CUDA device and
 skip without one; on a machine with a card run them with
@@ -8,7 +9,9 @@ skip without one; on a machine with a card run them with
 
 Tolerances: f32 1e-4 (sums in another order), bf16 2e-2 (p rounded to
 bf16 before the PV product, outputs rounded to bf16); for the flash
-kernels' dQ/dK/dV, relative to the plain result's largest magnitude.
+kernels' dQ/dK/dV, relative to the plain result's largest magnitude
+(with a single key dQ and dK are exactly 0, so there they are held to 0
+relative to the case's largest plain gradient).
 """
 
 import numpy as np
@@ -17,9 +20,14 @@ import torch
 
 from ray_tpu_torch.ops.attention import (flash_attention, flash_dkdv_cuda,
                                          flash_dkdv_kernel, flash_dkdv_plain,
+                                         flash_dkdv_sm90_cuda,
+                                         flash_dkdv_sm90_kernel,
                                          flash_dq_cuda, flash_dq_kernel,
                                          flash_dq_plain, flash_forward_cuda,
-                                         flash_forward_plain, flash_fwd_kernel)
+                                         flash_forward_plain,
+                                         flash_forward_sm90_cuda,
+                                         flash_fwd_kernel,
+                                         flash_fwd_sm90_kernel)
 from ray_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                paged_decode_cuda,
                                                paged_decode_kernel,
@@ -131,16 +139,70 @@ def test_flash_kernels_match_plain(hq, hkv, d, s, causal, dtype):
     assert _rel_err(dv, want_dv) <= tol
 
 
+def _grad_rel_err(got, want, name, sk) -> float:
+    """``_rel_err``, except dQ and dK with one key: exactly 0 there (the
+    plain values are rounding noise), relative to the largest plain
+    gradient."""
+    if sk == 1 and name in ("dq", "dk"):
+        scale = max(w.float().abs().max().item() for w in want.values())
+        return got.float().abs().max().item() / max(scale, 1e-30)
+    return _rel_err(got, want[name])
+
+
+@requires_cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 100, 257, 1000])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_sm90_kernels_match_plain(d, hq, hkv, s, causal):
+    q, k, v, do = _flash_inputs(2, hq, hkv, s, d, torch.bfloat16)
+    o, lse = flash_forward_sm90_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    want_o, want_lse = flash_forward_plain(q, k, v, causal)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert (o.float() - want_o.float()).abs().max().item() <= 2e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    delta = (do.float() * want_o.float()).sum(-1)
+    args = (q, k, v, do, want_lse, delta, causal)
+    dk, dv = flash_dkdv_sm90_cuda(*args)
+    torch.cuda.synchronize()
+    want = dict(zip(("dk", "dv"), flash_dkdv_plain(*args)))
+    want["dq"] = flash_dq_plain(*args)
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    for name, got in (("dk", dk), ("dv", dv)):
+        assert _grad_rel_err(got, want, name, s) <= 2e-2, name
+
+
+def _counts(kernels):
+    return [kern.launches for kern in kernels]
+
+
 @requires_cuda
 def test_flash_attention_counts_launches_and_raises():
+    """bf16 takes the sm90 forward, the simt dQ and the sm90 dK/dV, once
+    each per forward and backward, and no other flash kernel."""
     q, k, v, do = _flash_inputs(1, 4, 2, 64, 32, torch.bfloat16)
-    kernels = (flash_fwd_kernel, flash_dq_kernel, flash_dkdv_kernel)
-    before = [kern.launches for kern in kernels]
+    on = (flash_fwd_sm90_kernel, flash_dq_kernel, flash_dkdv_sm90_kernel)
+    off = (flash_fwd_kernel, flash_dkdv_kernel)
+    before, before_off = _counts(on), _counts(off)
     q.requires_grad_()
     flash_attention(q, k, v).backward(do)
-    assert [kern.launches for kern in kernels] == [n + 1 for n in before]
+    assert _counts(on) == [n + 1 for n in before]
+    assert _counts(off) == before_off
     with pytest.raises(TypeError):
         flash_attention(q.detach().half(), k.half(), v.half())
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q.detach()[..., :24], k[..., :24], v[..., :24])
-    assert [kern.launches for kern in kernels] == [n + 1 for n in before]
+    assert _counts(on) == [n + 1 for n in before]
+
+
+@requires_cuda
+def test_flash_attention_f32_launches_only_simt_kernels():
+    q, k, v, do = _flash_inputs(1, 4, 2, 64, 32, torch.float32)
+    on = (flash_fwd_kernel, flash_dq_kernel, flash_dkdv_kernel)
+    off = (flash_fwd_sm90_kernel, flash_dkdv_sm90_kernel)
+    before, before_off = _counts(on), _counts(off)
+    q.requires_grad_()
+    flash_attention(q, k, v).backward(do)
+    assert _counts(on) == [n + 1 for n in before]
+    assert _counts(off) == before_off
