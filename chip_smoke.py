@@ -6,36 +6,42 @@ Phases, each printing JSON lines:
 
   card          the card's name and power limit (nvidia-smi) and torch's name;
   build         builds every CUDA source in ``ray_tpu_torch/csrc`` (one nvcc
-                per source, all started together, five sources): seconds,
+                per source, all started together, seven sources): seconds,
                 registers and spills for each;
-  kernel        the paged decode kernel against its plain PyTorch version on
-                the card, at llama3-1b shapes (uniform and skewed batches,
-                staging rows 0/5/31, both compat modes, pos 0) and at
-                head_dim 128, 16 and 32 with pages of 64, 8 and 16, in bf16
-                and f32;
-  time          the paged kernel, its plain version and one PyTorch call
-                computing the same function (scaled_dot_product_attention
-                over pre-gathered K/V, a yardstick only) at the two llama3-1b
-                batches, beside the least time the card could take;
+  kernel        the paged decode kernels against their plain PyTorch version
+                on the card, at llama3-1b shapes (uniform and skewed batches,
+                staging rows 0/5/31, both compat modes, pos 0), at head_dim
+                128, 16 and 32 with pages of 64, 8 and 16, with more splits
+                than live pages and with a 128-page table: the split kernel
+                (the bf16 route, ``paged_route``) in bf16, the single kernel
+                (one block per (kv head, slot), the f32 route) in bf16 and
+                f32;
+  time          the split kernel, the single kernel it replaces on bf16
+                (``previous_ms``; the split kernel must take at most half of
+                it on the uniform batch and no more on the skewed one), the
+                plain version and one PyTorch call computing the same
+                function (scaled_dot_product_attention over pre-gathered
+                K/V, a yardstick only) at the two llama3-1b batches, beside
+                the least time the card could take;
   flash_kernel  the flash-attention kernels of each dtype's route
-                (``flash_route``: bf16 takes the sm90 forward and dK/dV and
-                the simt dQ, f32 the simt kernels) against their plain
-                versions: llama3-1b shapes (causal at bench.py's 8 x 2048,
-                non-causal, f32), and in bf16 every head_dim 16/32/64/128
-                with GQA groups 1 and 4, S 1/100/257/1000, causal and not;
-                at the main shape the simt forward and dK/dV on bf16 too;
+                (``flash_route``: bf16 takes the sm90 forward, dQ and dK/dV,
+                f32 the simt kernels) against their plain versions:
+                llama3-1b shapes (causal at bench.py's 8 x 2048, non-causal,
+                f32), and in bf16 every head_dim 16/32/64/128 with GQA
+                groups 1 and 4, S 1/100/257/1000, causal and not; at the
+                main shape the simt kernels on bf16 too;
   flash_time    each flash kernel at [8, 32, 2048, 64] / [8, 8, 2048, 64]
                 bf16, causal, beside its plain version, its bound and SDPA
                 (forward, and its backward for dQ and dK/dV; a yardstick
-                only, over K/V repeated to the q heads beforehand); the
-                sm90 forward and dK/dV also beside the simt kernel they
-                replace on bf16 (``previous_ms``), which each must beat 4x;
+                only, over K/V repeated to the q heads beforehand); each
+                sm90 kernel also beside the simt kernel it replaces on bf16
+                (``previous_ms``), which it must beat 4x;
   train         the training main path: llama3-1b with random weights,
                 batch 8 x 2048, remat "attn", chunked loss, autograd and an
                 SGD update, 2 warm-up and 5 timed steps on one repeated
                 batch, with each flash kernel's launch count read around
-                the run (16 a step each for the sm90 forward and dK/dV and
-                the simt dQ, 0 for the simt forward and dK/dV);
+                the run (16 a step each for the sm90 forward, dQ and dK/dV,
+                0 for the simt kernels);
   train_profile one more step under torch.profiler: the card's idle share
                 and where its time goes, per flash kernel;
   train_parity  f32 loss and every gradient of the kernel path
@@ -44,12 +50,14 @@ Phases, each printing JSON lines:
                 the launch counts read around it;
   serve         the serving main path: a llama3-1b ``InferenceEngine`` with
                 random weights serves 8 greedy requests (chunked prefill,
-                mixed dispatch, a prefix hit), with the paged kernel's launch
-                count read around the run;
+                mixed dispatch, a prefix hit), with the paged kernels' launch
+                counts read around the run (16 a decode step of the split
+                kernel, 0 of the single one);
   profile       one more decode dispatch on that engine under torch.profiler:
-                the card's idle share and kernels launched per step;
-  parity        f32 greedy tokens of the paged engine (the kernel) equal the
-                dense engine's at llama3-1b widths and 2 layers.
+                the card's idle share, kernels launched per step and the
+                paged kernels' device time;
+  parity        f32 greedy tokens of the paged engine (the single kernel)
+                equal the dense engine's at llama3-1b widths and 2 layers.
 
 Then a JSON line of the kernels, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -78,6 +86,8 @@ from ray_tpu_torch.ops.attention import (flash_dkdv_cuda, flash_dkdv_kernel,
                                          flash_dkdv_sm90_cuda,
                                          flash_dkdv_sm90_kernel, flash_dq_cuda,
                                          flash_dq_kernel, flash_dq_plain,
+                                         flash_dq_sm90_cuda,
+                                         flash_dq_sm90_kernel,
                                          flash_forward_cuda,
                                          flash_forward_plain,
                                          flash_forward_sm90_cuda,
@@ -86,13 +96,19 @@ from ray_tpu_torch.ops.attention import (flash_dkdv_cuda, flash_dkdv_kernel,
 from ray_tpu_torch.ops.paged_attention import (paged_decode_cuda,
                                                paged_decode_kernel,
                                                paged_decode_layer_args,
-                                               paged_decode_plain, stage_rows)
+                                               paged_decode_plain,
+                                               paged_decode_split_cuda,
+                                               paged_decode_split_kernel,
+                                               paged_route, stage_rows)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 L2_BYTES = 50 * 2 ** 20
+# About 0.5 ms at the H100's 1.98 GHz: longer than any timed call's host
+# enqueue.
+GPU_SPIN_CYCLES = 1_000_000
 DEVICE = "cuda"
 
 # llama3-1b engine geometry as the serving benchmark runs it.
@@ -123,6 +139,7 @@ class Case:
     mode: str = "stage"  # "stage" | "k_cur" | "pull_back"
     stage_idx: int = 0
     stage_layers: int = 2
+    live_pages: int | None = None   # default: the longest context's pages
 
 
 def make_inputs(case: Case, dtype, seed: int = 0) -> tuple:
@@ -144,8 +161,8 @@ def make_inputs(case: Case, dtype, seed: int = 0) -> tuple:
     pos = torch.tensor(case.ctx, dtype=torch.int32, device=dev)
     q = randn(n, case.kh, case.g, case.d)
     kw = {"page_size": case.page, "layer": 1,
-          "live_pages": max(1, -(-(max(case.ctx) - case.stage_idx)
-                                 // case.page))}
+          "live_pages": case.live_pages or max(
+              1, -(-(max(case.ctx) - case.stage_idx) // case.page))}
     if case.mode == "stage":
         shape = (case.stage_layers, n, case.kh, stage_rows(STEPS), case.d)
         kw.update(k_stage=randn(*shape), v_stage=randn(*shape),
@@ -177,41 +194,92 @@ def kernel_cases() -> list:
              max_pages=32),
         Case("d32_page16_g2", [300, 16, 33, 1], kh=2, g=2, d=32, page=16,
              max_pages=32),
+        # 64 covered pages in splits of 4 (16 splits on 132 SMs), the
+        # longest slot holding 13: every slot leaves splits with no live
+        # page, and one slot has none at all
+        Case("covered_past_live_pages", [100, 30, 3, 64], page=8,
+             max_pages=64, live_pages=64, stage_idx=3),
+        Case("max_pages128_page16", [2000, 1000, 47, 31], page=16,
+             max_pages=128, stage_idx=31),
     ]
     return cases
 
 
-def phase_kernel() -> float:
-    """Every case in bf16 and f32; returns the largest bf16 error at the
+@dataclasses.dataclass(frozen=True)
+class PagedKernel:
+    variant: str     # "split" (bf16 route) | "single" (f32 route)
+    kernel: object   # its CudaKernel (library, entry point, launch count)
+    cuda: object     # its wrapper
+    source: str
+
+
+PAGED_KERNELS = {
+    "paged_decode_attention_split": PagedKernel(
+        "split", paged_decode_split_kernel, paged_decode_split_cuda,
+        "paged_decode_split.cu"),
+    "paged_decode_attention_single": PagedKernel(
+        "single", paged_decode_kernel, paged_decode_cuda, "paged_decode.cu"),
+}
+
+
+def paged_kernel_of(dtype) -> str:
+    """The name of the kernel ``paged_decode_attention`` launches on a
+    CUDA tensor of ``dtype``."""
+    return next(n for n, pk in PAGED_KERNELS.items()
+                if pk.variant == paged_route(dtype))
+
+
+def paged_launches() -> dict:
+    return {name: pk.kernel.launches for name, pk in PAGED_KERNELS.items()}
+
+
+def reset_paged_launches() -> None:
+    for pk in PAGED_KERNELS.values():
+        pk.kernel.launches = 0
+
+
+def phase_kernel() -> dict:
+    """Every case through the kernel of each dtype's route, and the single
+    kernel on bf16 too; returns each kernel's largest bf16 error at the
     llama3-1b shapes (the main path's)."""
-    worst_main = 0.0
+    worst_main = {name: 0.0 for name in PAGED_KERNELS}
     for case in kernel_cases():
         for dtype in (torch.bfloat16, torch.float32):
             args = make_inputs(case, dtype)
-            got = paged_decode_cuda(*args)
-            torch.cuda.synchronize()
             want = paged_decode_plain(*args)
-            err = (got.float() - want.float()).abs().max().item()
-            tol = TOLERANCE[dtype]
-            emit("kernel", case=case.name, dtype=str(dtype).split(".")[-1],
-                 max_abs_err=err, tolerance=tol)
-            if not err <= tol:
-                raise AssertionError(f"kernel case {case.name} {dtype}: "
-                                     f"max abs error {err} > {tol}")
-            if dtype is torch.bfloat16 and case.d == 64:
-                worst_main = max(worst_main, err)
+            names = (list(PAGED_KERNELS) if dtype is torch.bfloat16
+                     else [paged_kernel_of(dtype)])
+            for name in names:
+                got = PAGED_KERNELS[name].cuda(*args)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = TOLERANCE[dtype]
+                emit("kernel", case=case.name, kernel=name,
+                     dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                     tolerance=tol)
+                if not err <= tol:
+                    raise AssertionError(f"kernel case {case.name} {name} "
+                                         f"{dtype}: max abs error {err} > "
+                                         f"{tol}")
+                if dtype is torch.bfloat16 and case.d == 64:
+                    worst_main[name] = max(worst_main[name], err)
     return worst_main
 
 
 def _time_ms(fn, iters: int = 30) -> float:
     """Median CUDA-event time of ``fn`` with the L2 cache flushed before
-    each call (each decode layer reads a different layer's pages)."""
+    each call (each decode layer reads a different layer's pages). The
+    card spins (``GPU_SPIN_CYCLES``) between the flush and the start
+    event, so the host has enqueued ``fn``'s kernels before the window
+    opens: the time is the device's, without the wrapper's host time
+    (40-60 us for a paged decode call, as much as its kernel)."""
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=DEVICE)
     for _ in range(3):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(GPU_SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -220,6 +288,18 @@ def _time_ms(fn, iters: int = 30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _host_ms(fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn`` (checks, allocation, enqueue), over
+    ``calls`` calls that the card runs behind the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
 
 
 def _bound(args) -> tuple[float, str]:
@@ -265,17 +345,40 @@ def _library_call(args):
 
 
 def phase_time() -> dict:
+    """Both paged kernels in bf16 at the two llama3-1b batches, per batch
+    and kernel name; the split kernel carries the single kernel as
+    ``previous_ms`` and must take at most half of it on the uniform batch
+    and no more than it on the skewed one."""
     out = {}
+    split = paged_kernel_of(torch.bfloat16)
+    single = paged_kernel_of(torch.float32)
     for batch, ctx in (("uniform", [2048] * SLOTS),
                        ("skewed", [2432] + [256] * 7)):
         args = make_inputs(Case(batch, ctx, stage_idx=16), torch.bfloat16)
         plain_ms = _time_ms(lambda: paged_decode_plain(*args))
-        ms = _time_ms(lambda: paged_decode_cuda(*args))
+        # in turns: split, single, single, split
+        ms = {name: [] for name in PAGED_KERNELS}
+        for name in (split, single, single, split):
+            ms[name].append(_time_ms(lambda: PAGED_KERNELS[name].cuda(*args)))
         library_ms = _time_ms(_library_call(args))
         bound_ms, bound_by = _bound(args)
-        out[batch] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms}
-        emit("time", batch=batch, stage_idx=16, dtype="bfloat16", **out[batch])
+        out[batch] = {}
+        for name, pk in PAGED_KERNELS.items():
+            out[batch][name] = {"ms": float(np.median(ms[name])),
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": library_ms,
+                                "host_ms": _host_ms(lambda: pk.cuda(*args))}
+        out[batch][split]["previous_ms"] = out[batch][single]["ms"]
+        for name, t in out[batch].items():
+            emit("time", batch=batch, kernel=name, stage_idx=16,
+                 dtype="bfloat16", runs_ms=ms[name], **t)
+    slow = {batch: out[batch][split] for batch, limit in
+            (("uniform", 0.5), ("skewed", 1.0))
+            if not out[batch][split]["ms"]
+            <= limit * out[batch][split]["previous_ms"]}
+    if slow:
+        raise AssertionError(f"split paged kernel not fast enough against "
+                             f"the single kernel: {slow}")
     return out
 
 
@@ -306,7 +409,10 @@ FLASH_KERNELS = {
         "flash_fwd_sm90.cu", 48),
     "flash_attention_fwd_simt": FlashKernel(
         "fwd", "simt", flash_fwd_kernel, flash_forward_cuda, "flash_fwd.cu", 48),
-    "flash_attention_dq": FlashKernel(
+    "flash_attention_dq_sm90": FlashKernel(
+        "dq", "sm90", flash_dq_sm90_kernel, flash_dq_sm90_cuda,
+        "flash_dq_sm90.cu", 184),
+    "flash_attention_dq_simt": FlashKernel(
         "dq", "simt", flash_dq_kernel, flash_dq_cuda, "flash_bwd.cu", 184),
     "flash_attention_dkdv_sm90": FlashKernel(
         "dkdv", "sm90", flash_dkdv_sm90_kernel, flash_dkdv_sm90_cuda,
@@ -618,6 +724,15 @@ def phase_train(seed: int = 0) -> dict:
 GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma")
 
 
+def _device_name(kernel) -> str:
+    """What a kernel's device name holds: its C entry point's name with
+    "_launch" replaced by "_kernel" (flash_fwd_sm90_kernel, ...). The
+    single paged kernel's entry keeps its older name."""
+    if kernel is paged_decode_kernel:
+        return "paged_decode_kernel"
+    return kernel.function.replace("_launch", "_kernel")
+
+
 def profile_train_step(params: dict, batch: dict, cfg) -> None:
     """One more train step under torch.profiler, after the launch counts
     were read: wall time against the summed device time of its kernels
@@ -643,8 +758,7 @@ def profile_train_step(params: dict, batch: dict, cfg) -> None:
     # Each kernel's device name holds its C entry point's name with
     # "_launch" replaced by "_kernel" (flash_fwd_sm90_kernel, ...).
     flash_ms = {name: sum(t for n, t in by_name.items()
-                          if fk.kernel.function.replace("_launch", "_kernel")
-                          in n) / 1e3
+                          if _device_name(fk.kernel) in n) / 1e3
                 for name, fk in FLASH_KERNELS.items()}
     gemm_ms = sum(t for n, t in by_name.items()
                   if any(w in n for w in GEMM_NAMES)) / 1e3
@@ -726,8 +840,10 @@ def _drain(eng: InferenceEngine, reqs: list) -> None:
         eng.step()
 
 
-def phase_serve(seed: int = 0) -> int:
-    """Returns the kernel's launch count over the served run."""
+def phase_serve(seed: int = 0) -> dict:
+    """Returns the paged kernels' launch counts over the served run:
+    ``n_layers`` a decode step for the kernel ``paged_route`` names for
+    bf16, 0 for the other."""
     cfg = PRESETS["llama3-1b"]
     rng = np.random.default_rng(seed)
     torch.cuda.reset_peak_memory_stats()
@@ -749,7 +865,7 @@ def phase_serve(seed: int = 0) -> int:
               for i, n in enumerate((16, 40, 77, 120, 160, 200))}
     names = list(shorts)
 
-    paged_decode_kernel.launches = 0
+    reset_paged_launches()
     t0 = time.monotonic()
     # Three requests arrive first; the rest arrive once those decode, so
     # their prompt chunks ride along with the decode bursts (mixed
@@ -765,7 +881,7 @@ def phase_serve(seed: int = 0) -> int:
     _drain(eng, second)
     torch.cuda.synchronize()
     t_end = time.monotonic()
-    launches = paged_decode_kernel.launches
+    launches = paged_launches()
 
     reqs = wave1 + wave2 + second
     m = eng.metrics
@@ -777,9 +893,13 @@ def phase_serve(seed: int = 0) -> int:
         raise AssertionError(f"no mixed dispatch ran: {m['engine_step_mix']}")
     if m["prefix_hit_pages"] <= 0 or second[0].cached_prefix_tokens <= 0:
         raise AssertionError("no prefix hit")
-    if launches != cfg.n_layers * m["decode_steps"] or launches == 0:
-        raise AssertionError(f"kernel launches {launches} != "
-                             f"{cfg.n_layers} x {m['decode_steps']} steps")
+    on_route = paged_kernel_of(cfg.dtype)
+    expected = {name: cfg.n_layers * m["decode_steps"] if name == on_route
+                else 0 for name in PAGED_KERNELS}
+    if launches != expected or m["decode_steps"] == 0:
+        raise AssertionError(f"paged kernel launches {launches} != "
+                             f"{expected} ({cfg.n_layers} layers x "
+                             f"{m['decode_steps']} decode steps)")
     ttft = [(r.first_token_at - r.arrived_at) * 1e3 for r in reqs]
     first_tok = min(r.first_token_at for r in reqs)
     n_tokens = sum(len(r.generated) for r in reqs)
@@ -791,7 +911,8 @@ def phase_serve(seed: int = 0) -> int:
          decode_tok_per_s=(n_tokens - len(reqs)) / (t_end - first_tok),
          output_tok_per_s=n_tokens / (t_end - t0),
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-         kernel_launches=launches, decode_steps=m["decode_steps"],
+         kernel_launches=launches, expected_launches=expected,
+         decode_steps=m["decode_steps"],
          decode_dispatches=m["decode_dispatches"],
          engine_step_mix=m["engine_step_mix"],
          prefix_hit_pages=m["prefix_hit_pages"],
@@ -825,18 +946,24 @@ def profile_decode_dispatch(eng: InferenceEngine, rng, cfg) -> None:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    decode_ms = sum(e.device_time_total for e in kernels
-                    if "paged_decode_kernel" in e.name) / 1e3
+    # Each kernel's device name holds its C entry point's name with
+    # "_launch" replaced by "_kernel" (paged_decode_split_kernel, ...).
+    paged_ms = {name: sum(e.device_time_total for e in kernels
+                          if _device_name(pk.kernel) in e.name) / 1e3
+                for name, pk in PAGED_KERNELS.items()}
     _drain(eng, reqs)
     emit("profile", what="one decode dispatch, 8 slots x 512 context, "
          f"{STEPS} steps", wall_ms=wall_ms,
          device_busy_ms=busy_ms if kernels else "not measured",
          device_idle_frac=1 - busy_ms / wall_ms if kernels else "not measured",
-         decode_kernel_ms=decode_ms,
+         decode_kernel_ms=sum(paged_ms.values()), paged_kernel_ms=paged_ms,
          kernels_per_step=len(kernels) / STEPS)
 
 
-def phase_parity(seed: int = 1) -> None:
+def phase_parity(seed: int = 1) -> dict:
+    """f32 greedy tokens, paged engine against dense; returns the paged
+    kernels' launch counts over the paged engine's run (the f32 route's
+    single kernel only)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(PRESETS["llama3-1b"], n_layers=2,
@@ -851,21 +978,31 @@ def phase_parity(seed: int = 1) -> None:
                               page_size=PAGE, prefill_chunk_size=128,
                               decode_steps_per_dispatch=8,
                               attention_impl=impl)
+        reset_paged_launches()
         reqs = _submit(eng, {f"p{i}": p for i, p in enumerate(prompts)}, 24)
         _drain(eng, reqs)
         out[impl] = [r.generated for r in reqs]
+        if impl == "paged":
+            launches = paged_launches()
     same = out["paged"] == out["dense"]
     emit("parity", dtype="float32", layers=2, prompts=len(prompts),
-         tokens_per_prompt=24, paged_equals_dense=same)
+         tokens_per_prompt=24, paged_equals_dense=same,
+         kernel_launches=launches)
     if not same:
         raise AssertionError(f"paged {out['paged']} != dense {out['dense']}")
+    on_route = paged_kernel_of(cfg.dtype)
+    if any((n > 0) != (name == on_route) for name, n in launches.items()):
+        raise AssertionError(f"f32 paged launches {launches}: expected only "
+                             f"{on_route}")
+    return launches
 
 
 def _build_all() -> None:
     """One nvcc per CUDA source, all started together."""
-    # one library per source: flash_bwd.cu holds dQ and the simt dK/dV
-    kernels = [paged_decode_kernel, flash_fwd_kernel, flash_dq_kernel,
-               flash_fwd_sm90_kernel, flash_dkdv_sm90_kernel]
+    # one library per source: flash_bwd.cu holds the simt dQ and dK/dV
+    kernels = [paged_decode_kernel, paged_decode_split_kernel,
+               flash_fwd_kernel, flash_dq_kernel, flash_fwd_sm90_kernel,
+               flash_dq_sm90_kernel, flash_dkdv_sm90_kernel]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda kern: kern.build(), kernels))
@@ -881,6 +1018,9 @@ def _build_all() -> None:
         emit("build", source=f"ray_tpu_torch/csrc/{kern.source.name}",
              seconds=kern.build_seconds, max_registers=max(regs, default=None),
              spill_bytes=spills, all_sources_wall_s=wall)
+        # a spilled wgmma kernel serialises its products (ptxas C7512)
+        if kern.source.name.endswith("_sm90.cu") and spills:
+            raise AssertionError(f"{kern.source.name} spills {spills} bytes")
 
 
 def main() -> int:
@@ -893,20 +1033,26 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     _build_all()
 
-    max_err = phase_kernel()
+    paged_err = phase_kernel()
     times = phase_time()
     flash_err = phase_flash_kernel()
     flash_times = phase_flash_time()
     train_launches = phase_train()
     parity_launches = phase_train_parity()
     launches = phase_serve()
-    phase_parity()
-    t = times["uniform"]
-    kernels = [{
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "ray_tpu_torch/csrc/paged_decode.cu",
-        "replaces": "ray_tpu/ops/paged_attention.py:103",
-        "launches": launches, "max_abs_err": max_err, **t}]
+    paged_parity_launches = phase_parity()
+    kernels = []
+    for name, pk in PAGED_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "variant": pk.variant,
+            "source": f"ray_tpu_torch/csrc/{pk.source}",
+            "replaces": "ray_tpu/ops/paged_attention.py:103",
+            # on the bf16 serve path; the single kernel runs on the f32
+            # path (parity) instead
+            "launches": launches[name],
+            "launches_f32_parity": paged_parity_launches[name],
+            "max_abs_err": paged_err[name], **times["uniform"][name],
+            "skewed": times["skewed"][name]})
     for name, fk in FLASH_KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda", "variant": fk.variant,

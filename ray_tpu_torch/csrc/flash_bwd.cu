@@ -26,9 +26,10 @@
 //
 // Bound on this card: operations (three 64 x 64 x D products per tile pair
 // for dQ, four for dK/dV). As in flash_fwd.cu, they run as float32 FMAs
-// from shared memory, not on the tensor cores. dQ serves both routes; the
-// dK/dV kernel here is the float32 route's, and bf16 takes
-// flash_dkdv_sm90.cu (wgmma, TMA).
+// from shared memory, not on the tensor cores. Both kernels here serve the
+// float32 route; bf16 takes flash_dq_sm90.cu and flash_dkdv_sm90.cu
+// (wgmma, TMA). They still take bf16 inputs, so chip_smoke.py times them
+// on bf16 beside the kernels that replace them there.
 
 #include "flash_common.cuh"
 

@@ -1,7 +1,10 @@
 // Paged-attention decode step for Hopper (sm_90a), plain C entry point.
 //
 // Replaces the Pallas TPU kernel `_decode_kernel` launched by
-// `paged_decode_attention` in ray_tpu/ops/paged_attention.py. Semantics are
+// `paged_decode_attention` in ray_tpu/ops/paged_attention.py on the float32
+// route; bf16, the serving path, takes the split-K kernel of
+// paged_decode_split.cu. This kernel still takes bf16, so chip_smoke.py
+// checks and times it there beside the split kernel. Semantics are
 // the same: one decode step of attention per slot over a read-only paged KV
 // pool, read through the slot's block table, then a fold of the slot's
 // staging rows, then the normalise.
@@ -25,8 +28,8 @@
 // does 4 * G * D flops per row, far below the H100's ~295 flops per byte
 // ridge. At llama3-1b (8 slots x 8 kv heads) the grid is only 64 blocks on
 // 132 SMs, and each block loads a tile and then computes on it with no
-// overlap: this first kernel aims at being right. Splitting the page walk
-// across blocks (split-K), TMA loads and wgmma are later work.
+// overlap: this first kernel aims at being right. paged_decode_split.cu
+// spreads the page walk over many blocks and keeps copies in flight.
 //
 // Shared-memory rows are padded by one 32-bit word so that the threads of a
 // warp, each scoring a different row, hit different banks.

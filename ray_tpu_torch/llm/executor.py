@@ -20,19 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..models.llama import PRESETS, LlamaConfig, init_params
 from .model import (copy_pages, decode_loop, init_pages, mixed_dispatch,
                     prefill_chunk, sample_first_batch)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Asking for CUDA where there is none raises:
-    the port never drops to the CPU on its own."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
-    return device
 
 
 def resolve_attention_impl(attention_impl: str = "auto",

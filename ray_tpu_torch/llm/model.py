@@ -33,13 +33,18 @@ from __future__ import annotations
 
 import torch
 
+from .._device import resolve_device
 from ..models.llama import LlamaConfig, _layer, _mlp, _project_qkv
 from ..ops import apply_rope, paged_decode_attention, rms_norm, stage_rows
 
 
 def init_pages(config: LlamaConfig, num_pages: int, page_size: int,
-               device="cpu") -> dict:
+               device=None) -> dict:
+    """A zeroed ``{"k", "v"}`` pool [L, P, KH, page, D] in the config's
+    dtype on ``device`` (``None``: the card, raising where there is
+    none)."""
     c = config
+    device = resolve_device(device)
     shape = (c.n_layers, num_pages, c.n_kv_heads, page_size, c.head_dim)
     return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
             "v": torch.zeros(shape, dtype=c.dtype, device=device)}

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve_device
+
 
 def _is_float(a: np.ndarray) -> bool:
     return a.dtype.kind == "f" or a.dtype.name == "bfloat16"
@@ -27,22 +29,29 @@ def _to_tensor(a, device, dtype: torch.dtype | None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def params_from_numpy(tree, device="cpu", dtype: torch.dtype | None = None):
-    """Nested dict of numpy arrays -> the same dict of tensors on
-    ``device``. Floating arrays take ``dtype`` (default: their own, with
-    numpy bfloat16 mapped to ``torch.bfloat16``); integer arrays keep
-    theirs. Layouts are unchanged."""
+def _tree_to(tree, device, dtype):
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
     return _to_tensor(tree, device, dtype)
 
 
-def pages_from_numpy(pages: dict, device="cpu",
+def params_from_numpy(tree, device=None, dtype: torch.dtype | None = None):
+    """Nested dict of numpy arrays -> the same dict of tensors on
+    ``device`` (``None``: the card, raising where there is none). Floating
+    arrays take ``dtype`` (default: their own, with numpy bfloat16 mapped
+    to ``torch.bfloat16``); integer arrays keep theirs. Layouts are
+    unchanged."""
+    return _tree_to(tree, resolve_device(device), dtype)
+
+
+def pages_from_numpy(pages: dict, device=None,
                      dtype: torch.dtype | None = None) -> dict:
     """A ``{"k", "v"}`` page pool [L, P, KH, page, D] of numpy arrays ->
-    tensors on ``device``."""
+    tensors on ``device`` (``None``: the card, raising where there is
+    none)."""
     if set(pages) != {"k", "v"}:
         raise ValueError(f"a page pool has keys k and v, not {sorted(pages)}")
+    device = resolve_device(device)
     out = {k: _to_tensor(v, device, dtype) for k, v in pages.items()}
     if out["k"].dim() != 5 or out["k"].shape != out["v"].shape:
         raise ValueError("page pool arrays must both be [L, P, KH, page, D]")

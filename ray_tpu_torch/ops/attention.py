@@ -6,9 +6,9 @@ The port of ``ray_tpu/ops/attention.py``. Its three Pallas TPU kernels
 C++ kernels written for Hopper, on two routes chosen by dtype alone
 (``flash_route``):
 
-  * bfloat16: ``csrc/flash_fwd_sm90.cu`` (forward) and
-    ``csrc/flash_dkdv_sm90.cu`` (dK/dV), bf16 ``wgmma`` products fed by
-    TMA, and the dQ kernel of ``csrc/flash_bwd.cu``;
+  * bfloat16: ``csrc/flash_fwd_sm90.cu`` (forward),
+    ``csrc/flash_dq_sm90.cu`` (dQ) and ``csrc/flash_dkdv_sm90.cu``
+    (dK/dV), bf16 ``wgmma`` products fed by TMA ("sm90");
   * float32: ``csrc/flash_fwd.cu`` (forward) and ``csrc/flash_bwd.cu``
     (dQ, dK/dV), exact float32 FMAs ("simt").
 
@@ -71,6 +71,9 @@ flash_dkdv_kernel = CudaKernel(
 flash_fwd_sm90_kernel = CudaKernel(
     "flash_fwd_sm90.cu", "flash_fwd_sm90_launch",
     [_P, _P, _P, _P, _P] + _SHAPE_ARGS)            # q, k, v, o, lse
+flash_dq_sm90_kernel = CudaKernel(
+    "flash_dq_sm90.cu", "flash_dq_sm90_launch",
+    [_P] * 7 + _SHAPE_ARGS)                        # q, k, v, dO, lse, δ, dq
 flash_dkdv_sm90_kernel = CudaKernel(
     "flash_dkdv_sm90.cu", "flash_dkdv_sm90_launch",
     [_P] * 8 + _SHAPE_ARGS)                        # q, k, v, dO, lse, δ, dk, dv
@@ -82,7 +85,7 @@ def flash_route(dtype: torch.dtype) -> dict:
     float32 FMAs). Decided by dtype alone; raises TypeError for a dtype
     no kernel takes."""
     if dtype == torch.bfloat16:
-        return {"fwd": "sm90", "dq": "simt", "dkdv": "sm90"}
+        return {"fwd": "sm90", "dq": "sm90", "dkdv": "sm90"}
     if dtype == torch.float32:
         return {"fwd": "simt", "dq": "simt", "dkdv": "simt"}
     raise TypeError(f"flash kernels take float32 or bfloat16, not {dtype}")
@@ -276,16 +279,31 @@ def _check_bwd(q, k, v, do, lse, delta) -> None:
                           "delta": (delta, torch.float32, stats)}, q, k)
 
 
-def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool = True,
-                  sm_scale: float | None = None):
-    """Launch the dQ kernel (arguments as for ``flash_dq_plain``)."""
-    _check_bwd(q, k, v, do, lse, delta)
+def _dq(kernel: CudaKernel, q, k, v, do, lse, delta, causal, sm_scale):
     dq = torch.empty_like(q)
-    _launch(flash_dq_kernel, q, k,
+    _launch(kernel, q, k,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr()], causal,
             _scale(q.shape[-1], sm_scale))
     return dq
+
+
+def flash_dq_cuda(q, k, v, do, lse, delta, causal: bool = True,
+                  sm_scale: float | None = None):
+    """Launch the float32-FMA ("simt") dQ kernel (arguments as for
+    ``flash_dq_plain``; float32 or bfloat16)."""
+    _check_bwd(q, k, v, do, lse, delta)
+    return _dq(flash_dq_kernel, q, k, v, do, lse, delta, causal, sm_scale)
+
+
+def flash_dq_sm90_cuda(q, k, v, do, lse, delta, causal: bool = True,
+                       sm_scale: float | None = None):
+    """Launch the bf16 wgmma dQ kernel (arguments as for
+    ``flash_dq_plain``; bfloat16 CUDA tensors only)."""
+    _check_bwd(q, k, v, do, lse, delta)
+    _check_sm90(q)
+    return _dq(flash_dq_sm90_kernel, q, k, v, do, lse, delta, causal,
+               sm_scale)
 
 
 def _dkdv(kernel: CudaKernel, q, k, v, do, lse, delta, causal, sm_scale):
@@ -318,6 +336,7 @@ def flash_dkdv_sm90_cuda(q, k, v, do, lse, delta, causal: bool = True,
 _CUDA = {("fwd", "simt"): flash_forward_cuda,
          ("fwd", "sm90"): flash_forward_sm90_cuda,
          ("dq", "simt"): flash_dq_cuda,
+         ("dq", "sm90"): flash_dq_sm90_cuda,
          ("dkdv", "simt"): flash_dkdv_cuda,
          ("dkdv", "sm90"): flash_dkdv_sm90_cuda}
 

@@ -1,9 +1,17 @@
 """Paged-attention decode step over a read-only KV page pool.
 
 The port of ``ray_tpu/ops/paged_attention.py``. The TPU kernel
-(``_decode_kernel``) becomes a CUDA C++ kernel written for Hopper,
-``csrc/paged_decode.cu``; the wrapper ``paged_decode_attention`` keeps the
-JAX function's signature and its three modes:
+(``_decode_kernel``) becomes CUDA C++ kernels written for Hopper, on two
+routes chosen by dtype alone (``paged_route``):
+
+  * bfloat16 (the serving path): ``csrc/paged_decode_split.cu``, the page
+    walk of each (kv head, slot) split over several blocks
+    (``paged_split_plan``) and combined in the same launch ("split");
+  * float32: ``csrc/paged_decode.cu``, one block per (kv head, slot)
+    ("single").
+
+The wrapper ``paged_decode_attention`` keeps the JAX function's signature
+and its three modes:
 
   * staging (the fused decode loop): the pool holds positions
     ``[0, pos - stage_idx)`` and the staging rows ``[0, stage_idx]`` of
@@ -20,13 +28,14 @@ Layouts are the JAX ones: q [slots, KH, G, D], pool [L, P, KH, page, D]
 
 A tensor on the CPU takes the plain PyTorch version below, which walks the
 same pages and rounds at the same places; a CUDA tensor launches the kernel
-or raises. The tensor-parallel split over KV heads (``mesh``) is not in
-this package yet.
+of its dtype's route or raises. The tensor-parallel split over KV heads
+(``mesh``) is not in this package yet.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -42,6 +51,11 @@ KERNEL_DIMS = (16, 32, 64, 128)
 KERNEL_PAGES = (8, 16, 32, 64)
 KERNEL_MAX_G = 16
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The split kernel's most splits per (kv head, slot), and the blocks per
+# SM its plan aims at: enough copies in flight to keep the card's memory
+# busy.
+SPLIT_MAX = 32
+SPLIT_BLOCKS_PER_SM = 4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +64,62 @@ paged_decode_kernel = CudaKernel(
     [_P, _P, _P, _P, _P, _P, _P, _P,          # q, k/v pool, tables, base, k/v stage, out
      _I, _I, _I, _I, _I, _I, _I, _I, _I,      # slots kh g d page max_pages covered sc sl
      ctypes.c_float, _I, _P])                 # scale, dtype, stream
+paged_decode_split_kernel = CudaKernel(
+    "paged_decode_split.cu", "paged_decode_split_launch",
+    # q, k/v pool, tables, base, k/v stage, out, workspace, tickets;
+    # slots kh g d page max_pages covered sc sl n_split per; scale, dtype,
+    # stream
+    [_P] * 10 + [_I] * 11 + [ctypes.c_float, _I, _P])
+
+
+def paged_route(dtype: torch.dtype) -> str:
+    """Which kernel ``paged_decode_attention`` launches on a CUDA tensor of
+    ``dtype``: ``"split"`` (bf16, ``csrc/paged_decode_split.cu``) or
+    ``"single"`` (float32, ``csrc/paged_decode.cu``). Decided by dtype
+    alone; raises TypeError for a dtype no kernel takes."""
+    if dtype == torch.bfloat16:
+        return "split"
+    if dtype == torch.float32:
+        return "single"
+    raise TypeError(f"paged decode kernels take float32 or bfloat16, not "
+                    f"{dtype}")
+
+
+def paged_split_plan(slots: int, kh: int, covered: int,
+                     num_sms: int) -> tuple[int, int]:
+    """``(n_split, pages_per_split)`` for the split kernel, from host
+    integers only (the context lengths live on the device and are never
+    read here). Split ``s`` of a (kv head, slot) walks the pool pages
+    ``[s * per, min((s + 1) * per, n_live))``, where ``n_live =
+    min(ceil(base / page), covered)`` is the slot's own, so a split may
+    find no live page; the last split also folds the staging rows. Aims
+    at ``SPLIT_BLOCKS_PER_SM`` blocks on each SM, at most ``SPLIT_MAX``
+    splits and at least one page a split."""
+    want = -(-SPLIT_BLOCKS_PER_SM * num_sms // max(slots * kh, 1))
+    n_split = max(1, min(want, covered, SPLIT_MAX))
+    per = -(-covered // n_split)
+    if per:
+        n_split = -(-covered // per)     # no split past the covered pages
+    return n_split, per
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# Per device, the split kernel's tickets: one int32 per (kv head, slot),
+# zeroed once here and reset to 0 by the kernel's last split. Launches
+# that share them run in order on one stream.
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    t = _TICKETS.get(device.index)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device.index] = torch.zeros(n, dtype=torch.int32,
+                                                 device=device)
+    return t
 
 
 def stage_rows(n_steps: int) -> int:
@@ -137,9 +207,10 @@ def _check_kernel_inputs(q, k_pool, v_pool, block_tables, base, k_stage,
 
 def paged_decode_cuda(q, k_pool, v_pool, block_tables, base, k_stage,
                       v_stage, sl: int, page_size: int, covered: int):
-    """Launch the CUDA kernel for one layer (arguments as for
-    ``paged_decode_plain``) on the current stream. Raises on any input the
-    kernel does not take, and if the launch is refused."""
+    """Launch the one-block-per-(kv head, slot) kernel ("single", float32
+    or bfloat16) for one layer (arguments as for ``paged_decode_plain``)
+    on the current stream. Raises on any input the kernel does not take,
+    and if the launch is refused."""
     _check_kernel_inputs(q, k_pool, v_pool, block_tables, base, k_stage,
                          v_stage, sl, page_size)
     n, kh, g, d = q.shape
@@ -156,6 +227,49 @@ def paged_decode_cuda(q, k_pool, v_pool, block_tables, base, k_stage,
         raise RuntimeError(f"paged decode kernel launch failed (code {rc})")
     paged_decode_kernel.launches += 1
     return out
+
+
+def paged_decode_split_cuda(q, k_pool, v_pool, block_tables, base, k_stage,
+                            v_stage, sl: int, page_size: int, covered: int):
+    """Launch the split-K kernel ("split", bfloat16 CUDA tensors only) for
+    one layer (arguments as for ``paged_decode_plain``) on the current
+    stream. Raises on any input the kernel does not take, before anything
+    is built, and if the launch is refused."""
+    _check_kernel_inputs(q, k_pool, v_pool, block_tables, base, k_stage,
+                         v_stage, sl, page_size)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the split paged decode kernel takes bfloat16, not "
+                        f"{q.dtype}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the split paged decode kernel takes CUDA tensors, "
+                         f"not {q.device}")
+    n, kh, g, d = q.shape
+    if not 0 <= covered <= block_tables.shape[1]:
+        raise ValueError(f"covered {covered} outside [0, "
+                         f"{block_tables.shape[1]}]")
+    n_split, per = paged_split_plan(n, kh, covered,
+                                    _num_sms(q.device.index))
+    out = torch.empty_like(q)
+    ws = torch.empty(n * kh * n_split * g * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    tickets = _tickets(q.device, n * kh)
+    fn = paged_decode_split_kernel.fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), base.data_ptr(), k_stage.data_ptr(),
+                v_stage.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                tickets.data_ptr(), n, kh, g, d, page_size,
+                block_tables.shape[1], covered, k_stage.shape[2], sl,
+                n_split, per, d ** -0.5, _KERNEL_DTYPES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"split paged decode kernel launch failed "
+                           f"(code {rc})")
+    paged_decode_split_kernel.launches += 1
+    return out
+
+
+_CUDA = {"single": paged_decode_cuda, "split": paged_decode_split_cuda}
 
 
 def paged_decode_layer_args(
@@ -241,5 +355,5 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos,
     if q.device.type == "cpu":
         return paged_decode_plain(*args)
     if q.device.type == "cuda":
-        return paged_decode_cuda(*args)
+        return _CUDA[paged_route(q.dtype)](*args)
     raise ValueError(f"no paged decode path for device {q.device}")

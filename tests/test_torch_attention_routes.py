@@ -3,9 +3,9 @@ checks the sm90 kernels' wrappers make before anything is built or
 launched. CPU only: no kernel is compiled or launched here.
 
 ``flash_route`` picks the kernels by dtype alone: bf16 takes the wgmma
-forward and dK/dV (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_dkdv_sm90.cu``)
-and the float32-FMA ("simt") dQ; float32 takes the simt kernels for all
-three steps.
+kernels for all three steps (``csrc/flash_fwd_sm90.cu``,
+``csrc/flash_dq_sm90.cu``, ``csrc/flash_dkdv_sm90.cu``); float32 takes the
+float32-FMA ("simt") kernels for all three.
 """
 
 import pytest
@@ -13,15 +13,18 @@ import torch
 
 from ray_tpu_torch.ops import attention as port
 from ray_tpu_torch.ops.attention import (flash_attention, flash_dkdv_sm90_cuda,
+                                         flash_dq_sm90_cuda,
                                          flash_forward_sm90_cuda, flash_route)
 
 ALL_KERNELS = (port.flash_fwd_kernel, port.flash_dq_kernel,
                port.flash_dkdv_kernel, port.flash_fwd_sm90_kernel,
-               port.flash_dkdv_sm90_kernel)
+               port.flash_dq_sm90_kernel, port.flash_dkdv_sm90_kernel)
+SM90_KERNELS = (port.flash_fwd_sm90_kernel, port.flash_dq_sm90_kernel,
+                port.flash_dkdv_sm90_kernel)
 
 
-def test_bf16_route_takes_sm90_forward_and_dkdv_and_simt_dq():
-    assert flash_route(torch.bfloat16) == {"fwd": "sm90", "dq": "simt",
+def test_bf16_route_takes_sm90_kernels_for_all_three_steps():
+    assert flash_route(torch.bfloat16) == {"fwd": "sm90", "dq": "sm90",
                                            "dkdv": "sm90"}
 
 
@@ -41,7 +44,12 @@ def test_each_route_names_a_wrapper():
         for step, variant in flash_route(dtype).items():
             assert callable(port._CUDA[step, variant])
     assert port._CUDA["fwd", "sm90"] is flash_forward_sm90_cuda
+    assert port._CUDA["dq", "sm90"] is flash_dq_sm90_cuda
     assert port._CUDA["dkdv", "sm90"] is flash_dkdv_sm90_cuda
+    # each sm90 wrapper launches its own library's entry point
+    assert {kern.source.name for kern in SM90_KERNELS} == {
+        "flash_fwd_sm90.cu", "flash_dq_sm90.cu", "flash_dkdv_sm90.cu"}
+    assert port.flash_dq_sm90_kernel.function == "flash_dq_sm90_launch"
 
 
 def _inputs(bad: str):
@@ -83,11 +91,12 @@ def test_sm90_wrappers_raise_before_any_launch(bad, error):
     with pytest.raises(error):
         flash_forward_sm90_cuda(q, k, v)
     with pytest.raises(error):
+        flash_dq_sm90_cuda(q, k, v, q, lse, lse)
+    with pytest.raises(error):
         flash_dkdv_sm90_cuda(q, k, v, q, lse, lse)
     assert [kern.launches for kern in ALL_KERNELS] == before
     # nothing was built or loaded
-    assert port.flash_fwd_sm90_kernel._fn is None
-    assert port.flash_dkdv_sm90_kernel._fn is None
+    assert all(kern._fn is None for kern in SM90_KERNELS)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -14,6 +14,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,8 +23,9 @@ from ray_tpu.llm.engine import InferenceEngine as JaxEngine
 from ray_tpu.llm.engine import PageAllocator as JaxPageAllocator
 from ray_tpu.llm.engine import Request as JaxRequest
 from ray_tpu_torch.llm import (ByteTokenizer, InferenceEngine, PageAllocator,
-                               QueueFullError, Request,
-                               resolve_attention_impl)
+                               QueueFullError, Request, pages_from_numpy,
+                               params_from_numpy, resolve_attention_impl)
+from ray_tpu_torch.llm.model import init_pages
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -279,12 +281,42 @@ def test_default_device_raises_without_cuda(model):
         InferenceEngine(tcfg, tparams, max_slots=2, max_len=64, page_size=8)
 
 
+def _device_default_calls(tcfg):
+    """Each entry point that places tensors, called with ``device``
+    (``None``: the default)."""
+    np_pages = {k: np.zeros((1, 2, 1, 4, 8), np.float32) for k in "kv"}
+    return {
+        "init_pages": lambda device: init_pages(tcfg, 4, 8, device)["k"],
+        "params_from_numpy": lambda device: params_from_numpy(
+            {"w": np.ones(3, np.float32)}, device)["w"],
+        "pages_from_numpy": lambda device: pages_from_numpy(
+            np_pages, device)["k"],
+    }
+
+
+@pytest.mark.skipif("torch.cuda.is_available()",
+                    reason="checks the behaviour without a CUDA device")
+@pytest.mark.parametrize("name", ["init_pages", "params_from_numpy",
+                                  "pages_from_numpy"])
+def test_entry_points_default_to_the_card_and_raise_without_one(model,
+                                                                 name):
+    _, (_, tcfg, _) = model
+    call = _device_default_calls(tcfg)[name]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call(None)
+    assert call("cpu").device.type == "cpu"
+
+
 def test_import_loads_no_jax_and_no_ray_tpu():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.llm.engine, "
             "ray_tpu_torch.ops.paged_attention, ray_tpu_torch._cuda, "
+            "ray_tpu_torch._device, "
             "ray_tpu_torch.ops.attention, ray_tpu_torch.models.llama\n"
             "from ray_tpu_torch.ops.attention import (flash_route, "
-            "flash_forward_sm90_cuda, flash_dkdv_sm90_cuda)\n"
+            "flash_forward_sm90_cuda, flash_dq_sm90_cuda, "
+            "flash_dkdv_sm90_cuda)\n"
+            "from ray_tpu_torch.ops.paged_attention import (paged_route, "
+            "paged_split_plan, paged_decode_split_cuda)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

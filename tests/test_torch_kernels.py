@@ -1,6 +1,8 @@
-"""The port's CUDA kernels (paged decode; flash-attention forward, dQ and
-dK/dV, on both routes: the bf16 wgmma forward and dK/dV, and the float32
-FMA kernels) against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (paged decode on both routes: the bf16 split-K
+kernel and the one-block-per-(kv head, slot) kernel; flash-attention
+forward, dQ and dK/dV on both routes: the bf16 wgmma kernels and the
+float32 FMA kernels) against their plain PyTorch versions, on the card,
+and the entry points' default device.
 
 CUDA kernels have no interpreter, so these tests need a CUDA device and
 skip without one; on a machine with a card run them with
@@ -18,12 +20,17 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.llm import pages_from_numpy, params_from_numpy
+from ray_tpu_torch.llm.model import init_pages
+from ray_tpu_torch.models.llama import PRESETS
 from ray_tpu_torch.ops.attention import (flash_attention, flash_dkdv_cuda,
                                          flash_dkdv_kernel, flash_dkdv_plain,
                                          flash_dkdv_sm90_cuda,
                                          flash_dkdv_sm90_kernel,
                                          flash_dq_cuda, flash_dq_kernel,
-                                         flash_dq_plain, flash_forward_cuda,
+                                         flash_dq_plain, flash_dq_sm90_cuda,
+                                         flash_dq_sm90_kernel,
+                                         flash_forward_cuda,
                                          flash_forward_plain,
                                          flash_forward_sm90_cuda,
                                          flash_fwd_kernel,
@@ -32,7 +39,9 @@ from ray_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                paged_decode_cuda,
                                                paged_decode_kernel,
                                                paged_decode_layer_args,
-                                               paged_decode_plain)
+                                               paged_decode_plain,
+                                               paged_decode_split_cuda,
+                                               paged_decode_split_kernel)
 
 requires_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
                                    reason="needs a CUDA device")
@@ -40,9 +49,9 @@ requires_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def _inputs(g, d, page, ctx, dtype, stage_idx, seed=0):
+def _inputs(g, d, page, ctx, dtype, stage_idx, seed=0, max_pages=8):
     rng = np.random.default_rng(seed)
-    n, kh, max_pages = len(ctx), 2, 8
+    n, kh = len(ctx), 2
     pool = n + n * max_pages
 
     def randn(*shape):
@@ -76,6 +85,33 @@ def test_paged_decode_kernel_matches_plain(g, d, page, dtype, stage_idx):
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
 
 
+# Context lengths per batch kind, for a page of ``page`` rows: every slot
+# long; one slot long and the rest short; every slot at position 0 (the
+# staging rows only).
+def _ctx(batch, page, stage_idx):
+    return {"uniform": [20 * page + 5 + stage_idx] * 4,
+            "skewed": [30 * page + 7 + stage_idx] + [page + stage_idx] * 3,
+            "pos0": [stage_idx] * 4}[batch]
+
+
+@requires_cuda
+@pytest.mark.parametrize("stage_idx", [0, 31])
+@pytest.mark.parametrize("batch", ["uniform", "skewed", "pos0"])
+@pytest.mark.parametrize("page", [8, 16, 64])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_paged_split_kernel_matches_plain(g, d, page, batch, stage_idx):
+    args = _inputs(g, d, page, _ctx(batch, page, stage_idx), torch.bfloat16,
+                   stage_idx, max_pages=32)
+    before = paged_decode_split_kernel.launches
+    got = paged_decode_split_cuda(*args)
+    torch.cuda.synchronize()
+    assert paged_decode_split_kernel.launches == before + 1
+    want = paged_decode_plain(*args)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
 @requires_cuda
 def test_paged_decode_wrapper_counts_and_raises():
     args = _inputs(2, 32, 16, [3, 40], torch.float32, 0)
@@ -88,6 +124,12 @@ def test_paged_decode_wrapper_counts_and_raises():
     with pytest.raises(TypeError):
         paged_decode_attention(q.half(), kp.half(), vp.half(), bt, pos,
                                page_size=16)
+    assert paged_decode_kernel.launches == before + 1
+    # bf16 takes the split kernel, once, and not the single one
+    before_split = paged_decode_split_kernel.launches
+    paged_decode_attention(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), bt,
+                           pos, page_size=16)
+    assert paged_decode_split_kernel.launches == before_split + 1
     assert paged_decode_kernel.launches == before + 1
 
 
@@ -164,12 +206,13 @@ def test_sm90_kernels_match_plain(d, hq, hkv, s, causal):
     assert (lse - want_lse).abs().max().item() <= 1e-4
     delta = (do.float() * want_o.float()).sum(-1)
     args = (q, k, v, do, want_lse, delta, causal)
+    dq = flash_dq_sm90_cuda(*args)
     dk, dv = flash_dkdv_sm90_cuda(*args)
     torch.cuda.synchronize()
     want = dict(zip(("dk", "dv"), flash_dkdv_plain(*args)))
     want["dq"] = flash_dq_plain(*args)
-    assert dk.dtype == dv.dtype == torch.bfloat16
-    for name, got in (("dk", dk), ("dv", dv)):
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
         assert _grad_rel_err(got, want, name, s) <= 2e-2, name
 
 
@@ -179,11 +222,11 @@ def _counts(kernels):
 
 @requires_cuda
 def test_flash_attention_counts_launches_and_raises():
-    """bf16 takes the sm90 forward, the simt dQ and the sm90 dK/dV, once
-    each per forward and backward, and no other flash kernel."""
+    """bf16 takes the sm90 forward, dQ and dK/dV, once each per forward
+    and backward, and no other flash kernel."""
     q, k, v, do = _flash_inputs(1, 4, 2, 64, 32, torch.bfloat16)
-    on = (flash_fwd_sm90_kernel, flash_dq_kernel, flash_dkdv_sm90_kernel)
-    off = (flash_fwd_kernel, flash_dkdv_kernel)
+    on = (flash_fwd_sm90_kernel, flash_dq_sm90_kernel, flash_dkdv_sm90_kernel)
+    off = (flash_fwd_kernel, flash_dq_kernel, flash_dkdv_kernel)
     before, before_off = _counts(on), _counts(off)
     q.requires_grad_()
     flash_attention(q, k, v).backward(do)
@@ -200,9 +243,19 @@ def test_flash_attention_counts_launches_and_raises():
 def test_flash_attention_f32_launches_only_simt_kernels():
     q, k, v, do = _flash_inputs(1, 4, 2, 64, 32, torch.float32)
     on = (flash_fwd_kernel, flash_dq_kernel, flash_dkdv_kernel)
-    off = (flash_fwd_sm90_kernel, flash_dkdv_sm90_kernel)
+    off = (flash_fwd_sm90_kernel, flash_dq_sm90_kernel,
+           flash_dkdv_sm90_kernel)
     before, before_off = _counts(on), _counts(off)
     q.requires_grad_()
     flash_attention(q, k, v).backward(do)
     assert _counts(on) == [n + 1 for n in before]
     assert _counts(off) == before_off
+
+
+@requires_cuda
+def test_entry_points_default_to_the_card():
+    cfg = PRESETS["debug"]
+    np_pages = {k: np.zeros((1, 2, 1, 4, 8), np.float32) for k in "kv"}
+    assert init_pages(cfg, 4, 8)["k"].device.type == "cuda"
+    assert params_from_numpy({"w": np.ones(3, np.float32)})["w"].is_cuda
+    assert pages_from_numpy(np_pages)["v"].is_cuda

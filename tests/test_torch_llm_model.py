@@ -54,7 +54,7 @@ def test_params_carry_over_layouts(model):
                                   np.asarray(jparams["layers"]["wo"]))
     # bf16 rides through f32 exactly
     bf = np.asarray(jnp.asarray(np.linspace(-3, 3, 11), jnp.bfloat16))
-    t = params_from_numpy({"w": bf})["w"]
+    t = params_from_numpy({"w": bf}, "cpu")["w"]
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), bf.astype(np.float32))
 
@@ -79,7 +79,7 @@ def test_prefill_chunk_parity(model, preset, start_pos, chunk, live_pages):
         jnp.int32(start_pos), config=jcfg, page_size=page,
         live_pages=live_pages)
     tpages, th = tm.prefill_chunk(
-        tparams, pages_from_numpy(np_pages), torch.from_numpy(bt),
+        tparams, pages_from_numpy(np_pages, "cpu"), torch.from_numpy(bt),
         torch.from_numpy(tokens), start_pos, config=tcfg, page_size=page,
         live_pages=live_pages)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=ATOL,
@@ -118,16 +118,17 @@ def test_decode_loop_parity(model, paged, finish):
         # slot 1's third token, from an unbounded run, becomes its EOS id
         remaining[1] = 100
         free, _ = tm.decode_loop(
-            tparams, pages_from_numpy(np_pages), *targs(), gen, config=tcfg,
-            page_size=page, n_steps=K, paged=paged, live_pages=6)
+            tparams, pages_from_numpy(np_pages, "cpu"), *targs(), gen,
+            config=tcfg, page_size=page, n_steps=K, paged=paged,
+            live_pages=6)
         eos[1] = int(free[2, 1])
     jargs = [jnp.asarray(a) for a in (bt, tokens, pos, temps, eos, remaining)]
     jt, _, jpages = jm.decode_loop(
         jparams, _jpages(np_pages), *jargs, jax.random.PRNGKey(1),
         config=jcfg, page_size=page, n_steps=K, paged=paged, live_pages=6)
     tt, tpages = tm.decode_loop(
-        tparams, pages_from_numpy(np_pages), *targs(), gen, config=tcfg,
-        page_size=page, n_steps=K, paged=paged, live_pages=6)
+        tparams, pages_from_numpy(np_pages, "cpu"), *targs(), gen,
+        config=tcfg, page_size=page, n_steps=K, paged=paged, live_pages=6)
     jt = np.asarray(jt)
     np.testing.assert_array_equal(tt.numpy()[:, [0, 2]], jt[:, [0, 2]])
     np.testing.assert_array_equal(tt.numpy()[:3, 1], jt[:3, 1])
@@ -168,7 +169,7 @@ def test_paged_decode_loop_matches_port_dense(model):
     out = {}
     for paged in (False, True):
         out[paged] = tm.decode_loop(
-            tparams, pages_from_numpy(np_pages), *args,
+            tparams, pages_from_numpy(np_pages, "cpu"), *args,
             torch.Generator().manual_seed(0), config=tcfg, page_size=page,
             n_steps=12, paged=paged, live_pages=6)
     np.testing.assert_array_equal(out[False][0].numpy(), out[True][0].numpy())
@@ -190,7 +191,7 @@ def test_commit_staging_parity(model):
     want = jm.commit_staging(_jpages(np_pages), (jnp.asarray(ks),
                                                  jnp.asarray(vs)),
                              jnp.asarray(widx), jnp.asarray(pos0), K, page)
-    got = tm.commit_staging(pages_from_numpy(np_pages),
+    got = tm.commit_staging(pages_from_numpy(np_pages, "cpu"),
                             (torch.from_numpy(ks), torch.from_numpy(vs)),
                             torch.from_numpy(widx), torch.from_numpy(pos0),
                             K, page)
@@ -205,8 +206,8 @@ def test_copy_pages_parity(model):
     np_pages = _pools(jcfg, 10, 8, seed=7)
     src, dst = np.array([4, 6], np.int32), np.array([8, 1], np.int32)
     want = jm.copy_pages(_jpages(np_pages), jnp.asarray(src), jnp.asarray(dst))
-    got = tm.copy_pages(pages_from_numpy(np_pages), torch.from_numpy(src),
-                        torch.from_numpy(dst))
+    got = tm.copy_pages(pages_from_numpy(np_pages, "cpu"),
+                        torch.from_numpy(src), torch.from_numpy(dst))
     for name in ("k", "v"):
         np.testing.assert_array_equal(tree_to_numpy(got[name]),
                                       np.asarray(want[name]))
@@ -238,7 +239,7 @@ def test_mixed_dispatch_parity(model):
         page_size=page, n_steps=K, paged=False, live_pages=4,
         prefill_live_pages=(8, 1))
     tt, tpages, th = tm.mixed_dispatch(
-        tparams, pages_from_numpy(np_pages),
+        tparams, pages_from_numpy(np_pages, "cpu"),
         tuple((torch.from_numpy(b), torch.from_numpy(t), s)
               for b, t, s in ops),
         *[torch.from_numpy(a) for a in host], torch.Generator(),
