@@ -12,7 +12,9 @@ Phases, each printing JSON lines:
                 on the card, at llama3-1b shapes (uniform and skewed batches,
                 staging rows 0/5/31, both compat modes, pos 0), at head_dim
                 128, 16 and 32 with pages of 64, 8 and 16, with more splits
-                than live pages and with a 128-page table: the split kernel
+                than live pages, with a 128-page table, and at the
+                speculative verify's calls (page 16, 16 staging rows, row j
+                = 0..6 at pos + j, uniform and skewed): the split kernel
                 (the bf16 route, ``paged_route``) in bf16, the single kernel
                 (one block per (kv head, slot), the f32 route) in bf16 and
                 f32;
@@ -36,12 +38,17 @@ Phases, each printing JSON lines:
                 only, over K/V repeated to the q heads beforehand); each
                 sm90 kernel also beside the simt kernel it replaces on bf16
                 (``previous_ms``), which it must beat 4x;
+  lm_head_grad  one loss chunk's bf16 lm_head backward at llama3-1b widths:
+                its two float32 products (g kept at f32 as two bf16 terms)
+                within 1e-4 of float64 products, the parent's g rounded to
+                bf16 seen to miss, and both timed;
   train         the training main path: llama3-1b with random weights,
                 batch 8 x 2048, remat "attn", chunked loss, autograd and an
                 SGD update, 2 warm-up and 5 timed steps on one repeated
                 batch, with each flash kernel's launch count read around
                 the run (16 a step each for the sm90 forward, dQ and dK/dV,
-                0 for the simt kernels);
+                0 for the simt kernels), then the step time with the
+                lm_head fix against the parent's arithmetic, in turns;
   train_profile one more step under torch.profiler: the card's idle share
                 and where its time goes, per flash kernel;
   train_parity  f32 loss and every gradient of the kernel path
@@ -57,7 +64,18 @@ Phases, each printing JSON lines:
                 the card's idle share, kernels launched per step and the
                 paged kernels' device time;
   parity        f32 greedy tokens of the paged engine (the single kernel)
-                equal the dense engine's at llama3-1b widths and 2 layers.
+                equal the dense engine's at llama3-1b widths and 2 layers;
+  spec_parity   f32 greedy tokens of the speculative paged engine (K = 3,
+                page 16) equal the plain paged engine's at llama3-1b widths
+                and 2 layers, with an oracle, an always-wrong and the n-gram
+                drafter and a COW-forked shared prefix, with the single
+                kernel's launches read around each run (2 x 4 a verify);
+  speculate     ray_tpu/_speculative_bench.py's traffic on llama3-1b at full
+                width, bf16: 8 period-6 prompts of 512 tokens, 96 new tokens,
+                page 16, plain and with K = 6 (n-gram and oracle drafters):
+                tokens per second, acceptance, split-kernel launches (16 x 7
+                a verify call, read around each run), how many requests
+                match plain, and one verify call under torch.profiler.
 
 Then a JSON line of the kernels, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -78,8 +96,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ray_tpu_torch.llm import InferenceEngine, Request, resolve_device
-from ray_tpu_torch.models.llama import (PRESETS, init_params, loss_fn,
+from ray_tpu_torch.llm import (Drafter, InferenceEngine, LocalEngineExecutor,
+                               Request, resolve_device)
+from ray_tpu_torch.models import llama as llama_model
+from ray_tpu_torch.models.llama import (PRESETS, init_params,
+                                        lm_head_grads_f32, loss_fn,
                                         train_flops_per_token)
 from ray_tpu_torch.ops.attention import (flash_dkdv_cuda, flash_dkdv_kernel,
                                          flash_dkdv_plain,
@@ -113,6 +134,11 @@ DEVICE = "cuda"
 
 # llama3-1b engine geometry as the serving benchmark runs it.
 SLOTS, MAX_LEN, PAGE, CHUNK, STEPS = 8, 2560, 64, 256, 32
+# The speculative bench's geometry (ray_tpu/_speculative_bench.py): K = 6
+# drafts, page 16, 96 new tokens, with 512-token prompts (its CPU default
+# is 48), so max_len = ceil((512 + 96 + 16) / 16) * 16.
+SPEC_K, SPEC_PAGE, SPEC_NEW, SPEC_PROMPT = 6, 16, 96, 512
+SPEC_MAX_LEN = -(-(SPEC_PROMPT + SPEC_NEW + SPEC_PAGE) // SPEC_PAGE) * SPEC_PAGE
 
 
 def emit(phase: str, **fields) -> None:
@@ -140,6 +166,7 @@ class Case:
     stage_idx: int = 0
     stage_layers: int = 2
     live_pages: int | None = None   # default: the longest context's pages
+    stage_rows: int = stage_rows(STEPS)
 
 
 def make_inputs(case: Case, dtype, seed: int = 0) -> tuple:
@@ -164,7 +191,7 @@ def make_inputs(case: Case, dtype, seed: int = 0) -> tuple:
           "live_pages": case.live_pages or max(
               1, -(-(max(case.ctx) - case.stage_idx) // case.page))}
     if case.mode == "stage":
-        shape = (case.stage_layers, n, case.kh, stage_rows(STEPS), case.d)
+        shape = (case.stage_layers, n, case.kh, case.stage_rows, case.d)
         kw.update(k_stage=randn(*shape), v_stage=randn(*shape),
                   stage_idx=case.stage_idx)
         return paged_decode_layer_args(q, k_pages, v_pages, tables, pos, **kw)
@@ -202,6 +229,19 @@ def kernel_cases() -> list:
         Case("max_pages128_page16", [2000, 1000, 47, 31], page=16,
              max_pages=128, stage_idx=31),
     ]
+    # The speculative verify's calls at the `speculate` phase's geometry:
+    # position j of a K = 6 draft runs with pos + j and staging row j of
+    # 16, so the pool side reads [0, pos) (partly filled last pages) and
+    # live_pages is the executor's bucket of ceil(max(pos) / page).
+    for batch, pos in (("uniform", [519, 530, 601, 512, 555, 560, 577, 590]),
+                       ("skewed", [600, 17, 3, 0, 40, 5, 300, 2])):
+        for j in range(SPEC_K + 1):
+            cases.append(Case(
+                f"verify_{batch}_j{j}", [p + j for p in pos], page=SPEC_PAGE,
+                max_pages=SPEC_MAX_LEN // SPEC_PAGE, stage_idx=j,
+                stage_rows=stage_rows(SPEC_K + 1),
+                live_pages=LocalEngineExecutor._bucket_pages(
+                    -(-max(pos) // SPEC_PAGE), SPEC_MAX_LEN // SPEC_PAGE)))
     return cases
 
 
@@ -238,11 +278,12 @@ def reset_paged_launches() -> None:
         pk.kernel.launches = 0
 
 
-def phase_kernel() -> dict:
+def phase_kernel() -> tuple[dict, dict]:
     """Every case through the kernel of each dtype's route, and the single
     kernel on bf16 too; returns each kernel's largest bf16 error at the
-    llama3-1b shapes (the main path's)."""
+    llama3-1b shapes (the main path's), and over the verify's cases."""
     worst_main = {name: 0.0 for name in PAGED_KERNELS}
+    worst_verify = dict(worst_main)
     for case in kernel_cases():
         for dtype in (torch.bfloat16, torch.float32):
             args = make_inputs(case, dtype)
@@ -263,7 +304,9 @@ def phase_kernel() -> dict:
                                          f"{tol}")
                 if dtype is torch.bfloat16 and case.d == 64:
                     worst_main[name] = max(worst_main[name], err)
-    return worst_main
+                if dtype is torch.bfloat16 and case.name.startswith("verify"):
+                    worst_verify[name] = max(worst_verify[name], err)
+    return worst_main, worst_verify
 
 
 def _time_ms(fn, iters: int = 30) -> float:
@@ -715,9 +758,99 @@ def phase_train(seed: int = 0) -> dict:
                              f"({cfg.n_layers} layers x {steps} steps on the "
                              f"{cfg.dtype} route)")
     profile_train_step(params, batch, cfg)
+    time_lm_head_fix(params, batch, cfg)
     del params, batch
     torch.cuda.empty_cache()
     return launches
+
+
+def _parent_lm_head_grads(g, h, w):
+    """The bf16 lm_head backward's products before the fix: g rounded to
+    bf16 for both, float32 results (the backward rounds dh to bf16 as the
+    parent's bf16-output product did)."""
+    g = g.to(h.dtype)
+    return (torch.mm(g, w.t(), out_dtype=torch.float32),
+            torch.mm(h.t(), g, out_dtype=torch.float32))
+
+
+def time_lm_head_fix(params: dict, batch: dict, cfg, steps: int = 3) -> None:
+    """Train step time with the lm_head backward's two-term products
+    against the parent's rounded g, in turns (fix, parent, parent, fix),
+    after the launch counts were read."""
+    times = {"fix": [], "parent": []}
+    for which in ("fix", "parent", "parent", "fix"):
+        if which == "parent":
+            llama_model.lm_head_grads_f32 = _parent_lm_head_grads
+        try:
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _sgd_step(params, batch, cfg, TRAIN_LR).item()
+                times[which].append(time.perf_counter() - t0)
+        finally:
+            llama_model.lm_head_grads_f32 = lm_head_grads_f32
+    fix, parent = (float(np.median(times[k])) for k in ("fix", "parent"))
+    emit("train_lm_head_fix", what="llama3-1b train step, 8 x 2048, the "
+         "lm_head backward with g kept at f32 (two bf16 terms) against the "
+         "parent's g rounded to bf16", step_s_fix=times["fix"],
+         step_s_parent=times["parent"], median_step_s_fix=fix,
+         median_step_s_parent=parent, cost_ms=(fix - parent) * 1e3)
+
+
+def phase_lm_head_grad(seed: int = 0) -> dict:
+    """One loss chunk's lm_head backward at llama3-1b widths in bf16 (2048
+    tokens, hidden 2048, vocab 128,256): the two float32 products of
+    ``lm_head_grads_f32`` against float64 products of the float32 g with
+    the exact bf16 h and w, within 1e-4 (relative Frobenius); the parent's
+    g rounded to bf16 must miss by more than 1e-3, which shows the check
+    sees the fault; the fix's dh with its reduction over V in one piece
+    is shown beside. Times the fix and the parent's arithmetic."""
+    cfg = PRESETS["llama3-1b"]
+    c, e, v = TRAIN_CHUNK, cfg.hidden, cfg.vocab_size
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    g = torch.randn(c, v, generator=gen, device=DEVICE) * 1e-4
+    h = torch.randn(c, e, generator=gen, device=DEVICE).bfloat16()
+    w = (torch.randn(e, v, generator=gen, device=DEVICE) * e ** -0.5
+         ).bfloat16()
+
+    def unsplit(g, h, w):
+        """The two-term products with dh's reduction over V in one piece."""
+        g_hi = g.to(h.dtype)
+        g_lo = (g - g_hi).to(h.dtype)
+        dh = torch.mm(g_hi, w.t(), out_dtype=torch.float32)
+        dh += torch.mm(g_lo, w.t(), out_dtype=torch.float32)
+        return (dh,)
+
+    g64 = g.double()
+    want = {"dh": g64 @ w.double().t(), "dw": h.double().t() @ g64}
+    errs = {}
+    for name, fn in (("fix", lm_head_grads_f32),
+                     ("parent", _parent_lm_head_grads),
+                     ("unsplit", unsplit)):
+        got = dict(zip(("dh", "dw"), fn(g, h, w)))
+        errs[name] = {k: (torch.linalg.norm(got[k].double() - want[k])
+                          / torch.linalg.norm(want[k])).item() for k in got}
+        del got
+    del g64, want
+    torch.cuda.empty_cache()
+    ms = {"fix": _time_ms(lambda: lm_head_grads_f32(g, h, w), iters=10),
+          "parent": _time_ms(lambda: _parent_lm_head_grads(g, h, w),
+                             iters=10)}
+    emit("lm_head_grad", preset="llama3-1b", chunk_tokens=c, hidden=e,
+         vocab=v, rel_frobenius_err_fix=errs["fix"],
+         rel_frobenius_err_parent=errs["parent"],
+         rel_frobenius_err_unsplit=errs["unsplit"],
+         dh_reduction_piece=llama_model.LM_HEAD_MAX_K, tolerance=1e-4,
+         ms_fix=ms["fix"], ms_parent=ms["parent"],
+         chunks_per_train_step=TRAIN_BATCH * TRAIN_SEQ // c)
+    if not max(errs["fix"].values()) <= 1e-4:
+        raise AssertionError(f"lm_head backward: {errs['fix']} > 1e-4")
+    if not min(errs["parent"].values()) > 1e-3:
+        raise AssertionError(f"the parent's rounding is not seen: "
+                             f"{errs['parent']}")
+    del g, h, w
+    torch.cuda.empty_cache()
+    return {"errs": errs, "ms": ms}
 
 
 # cuBLAS's matrix-product kernels, by name (the projections, MLP, lm_head)
@@ -997,6 +1130,258 @@ def phase_parity(seed: int = 1) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- speculate
+class OracleDrafter(Drafter):
+    """Drafts the continuation a plain run produced for the sequence whose
+    prompt and output start with the history; ``wrong=True`` shifts every
+    drafted id by one, so the first is never the argmax. Where no sequence
+    matches, drafts the last token ``k`` times, so every slot drafts."""
+
+    def __init__(self, sequences, vocab: int, wrong: bool = False):
+        self.sequences = [list(q) for q in sequences]
+        self.vocab, self.wrong = vocab, wrong
+
+    def draft(self, tokens: list, k: int) -> list:
+        for seq in self.sequences:
+            if len(seq) > len(tokens) and seq[:len(tokens)] == tokens:
+                d = seq[len(tokens):len(tokens) + k]
+                return [(t + 1) % self.vocab for t in d] if self.wrong else d
+        return [tokens[-1]] * k
+
+
+def _expected_paged(eng: InferenceEngine, cfg) -> dict:
+    """Paged launches an engine's run must show: ``n_layers`` a decode
+    step of the plain bursts and ``n_layers * (K + 1)`` a verify call, all
+    on the kernel of the config's dtype."""
+    m = eng.metrics
+    k = eng.speculation.num_draft_tokens if eng.speculation else 0
+    n = cfg.n_layers * (m["decode_steps"] + (k + 1) * m["spec_dispatches"])
+    on_route = paged_kernel_of(cfg.dtype)
+    return {name: n if name == on_route else 0 for name in PAGED_KERNELS}
+
+
+def phase_spec_parity(seed: int = 2) -> dict:
+    """f32 greedy tokens of the speculative paged engine equal the plain
+    paged engine's at llama3-1b widths and 2 layers (page 16, 4 slots,
+    K = 3): with an oracle drafter (accepted runs cross page edges), a
+    wrong one (accept-0 rounds still advance a token) and an n-gram one; a
+    last request shares a retired prompt's prefix into a partial page, so
+    it COW-forks that page and its drafts are rejected mid-page. Returns
+    the paged kernels' launch counts over the speculative runs (the f32
+    route's single kernel only)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(PRESETS["llama3-1b"], n_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(DEVICE).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    prompts = {f"p{i}": rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate((5, 37, 70, 131))}
+    # The last request shares p1's 37 prompt tokens and first 15 outputs:
+    # p1 retires with 60 tokens of K/V, 3 full pages and 12 rows of a
+    # fourth, and the last request matches the 3 pages and 4 of the rows.
+    late_tail = rng.integers(0, cfg.vocab_size, 9).tolist()
+
+    def serve(spec):
+        eng = InferenceEngine(cfg, params, max_slots=4, max_len=256,
+                              page_size=SPEC_PAGE, prefill_chunk_size=64,
+                              decode_steps_per_dispatch=8,
+                              attention_impl="paged",
+                              speculation_config=spec)
+        reqs = _submit(eng, prompts, 24)
+        _drain(eng, reqs)
+        late = _submit(eng, {"late": prompts["p1"] + reqs[1].generated[:15]
+                             + late_tail}, 24)
+        _drain(eng, late)
+        return [r.generated for r in reqs + late], eng
+
+    plain, _ = serve(None)
+    seqs = [p + out for p, out in zip(
+        [*prompts.values(), prompts["p1"] + plain[1][:15] + late_tail],
+        plain)]
+    launches = {name: 0 for name in PAGED_KERNELS}
+    runs = {}
+    for name, drafter in (
+            ("oracle", OracleDrafter(seqs, cfg.vocab_size)),
+            ("wrong", OracleDrafter(seqs, cfg.vocab_size, wrong=True)),
+            ("ngram", "ngram")):
+        reset_paged_launches()
+        got, eng = serve({"num_draft_tokens": 3, "drafter": drafter})
+        torch.cuda.synchronize()
+        run_launches = paged_launches()
+        m = eng.metrics
+        runs[name] = {
+            "equal_to_plain": got == plain, "kernel_launches": run_launches,
+            "expected_launches": _expected_paged(eng, cfg),
+            **{k: m[k] for k in ("spec_dispatches", "spec_drafted_tokens",
+                                 "spec_accepted_tokens", "spec_rollbacks",
+                                 "decode_steps", "cow_forks",
+                                 "prefix_hit_pages")},
+            "spec_accept_rate": eng.spec_accept_rate,
+            "spec_tokens_per_dispatch": eng.spec_tokens_per_dispatch}
+        for k, n in run_launches.items():
+            launches[k] += n
+        del eng
+    emit("spec_parity", dtype="float32", layers=2, page=SPEC_PAGE, slots=4,
+         draft_k=3, requests=len(plain), tokens_per_request=24, runs=runs)
+    for name, r in runs.items():
+        if not r["equal_to_plain"]:
+            raise AssertionError(f"spec_parity {name}: speculative tokens "
+                                 f"differ from plain")
+        if r["kernel_launches"] != r["expected_launches"]:
+            raise AssertionError(f"spec_parity {name}: launches "
+                                 f"{r['kernel_launches']} != "
+                                 f"{r['expected_launches']}")
+        if r["cow_forks"] < 1:
+            raise AssertionError(f"spec_parity {name}: no COW fork: {r}")
+    if not (runs["oracle"]["spec_accepted_tokens"] > 0
+            and runs["wrong"]["spec_dispatches"] > 0
+            and runs["wrong"]["spec_accepted_tokens"] == 0
+            and runs["wrong"]["spec_rollbacks"] > 0
+            and runs["wrong"]["spec_tokens_per_dispatch"] == 1.0):
+        raise AssertionError(f"spec_parity metrics: {runs}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def spec_prompts(n: int, length: int) -> list:
+    """ray_tpu/_speculative_bench.py's traffic: repetitive prompts of
+    period 6, distinct per slot."""
+    out = []
+    for i in range(n):
+        period = [11 + i, 23, 37, 41 + i, 5, 17]
+        out.append([period[j % len(period)] % 200 + 1 for j in range(length)])
+    return out
+
+
+def phase_speculate(seed: int = 0) -> dict:
+    """The speculative bench's traffic on llama3-1b at full width, bf16,
+    random weights: 8 slots, 512-token period-6 prompts (one prefill chunk
+    each), 96 new tokens, page 16; plain, then K = 6 with the n-gram
+    drafter and with an oracle drafter taken from the plain run. Returns
+    the paged kernels' launch counts over the two speculative runs (the
+    split kernel only: 16 x 7 a verify call)."""
+    cfg = PRESETS["llama3-1b"]
+    params = init_params(cfg, torch.Generator(DEVICE).manual_seed(seed))
+    prompts = spec_prompts(SLOTS, SPEC_PROMPT)
+
+    def engine(spec):
+        return InferenceEngine(
+            cfg, params, max_slots=SLOTS, max_len=SPEC_MAX_LEN,
+            page_size=SPEC_PAGE, prefill_chunk_size=SPEC_PROMPT,
+            attention_impl="paged", speculation_config=spec, seed=seed)
+
+    def run(eng):
+        torch.cuda.reset_peak_memory_stats()
+        reqs = _submit(eng, {f"s{i}": p for i, p in enumerate(prompts)},
+                       SPEC_NEW)
+        t0 = time.monotonic()
+        _drain(eng, reqs)
+        torch.cuda.synchronize()
+        t_end = time.monotonic()
+        first = min(r.first_token_at for r in reqs)
+        n_tok = sum(len(r.generated) for r in reqs)
+        for r in reqs:
+            toks = np.asarray(r.generated)
+            if (len(toks) != SPEC_NEW or toks.min() < 0
+                    or toks.max() >= cfg.vocab_size):
+                raise AssertionError(f"{r.request_id}: bad output "
+                                     f"{r.generated}")
+        return [r.generated for r in reqs], {
+            "decode_tok_per_s": (n_tok - len(reqs)) / (t_end - first),
+            "wall_s": t_end - t0,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+    reset_paged_launches()
+    plain_eng = engine(None)
+    plain, out = run(plain_eng)
+    results = {"plain": {**out, "kernel_launches": paged_launches(),
+                         "decode_steps": plain_eng.metrics["decode_steps"]}}
+    del plain_eng
+    seqs = [p + o for p, o in zip(prompts, plain)]
+    launches = {name: 0 for name in PAGED_KERNELS}
+    L = cfg.n_layers
+    for name, drafter in (("ngram", "ngram"),
+                          ("oracle", OracleDrafter(seqs, cfg.vocab_size))):
+        eng = engine({"num_draft_tokens": SPEC_K, "drafter": drafter})
+        reset_paged_launches()
+        got, out = run(eng)
+        run_launches = paged_launches()
+        m = eng.metrics
+        split = run_launches[paged_kernel_of(cfg.dtype)]
+        firsts = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                       None) for x, y in zip(got, plain)]
+        results[name] = {
+            **out, "spec_accept_rate": eng.spec_accept_rate,
+            "spec_tokens_per_dispatch": eng.spec_tokens_per_dispatch,
+            "spec_dispatches": m["spec_dispatches"],
+            "decode_steps": m["decode_steps"],
+            "split_launches_per_verify": (
+                (split - L * m["decode_steps"]) / m["spec_dispatches"]
+                if m["spec_dispatches"] else None),
+            "kernel_launches": run_launches,
+            "expected_launches": _expected_paged(eng, cfg),
+            "requests_equal_to_plain": sum(f is None for f in firsts),
+            "first_differing_token": firsts}
+        for k, n in run_launches.items():
+            launches[k] += n
+        if name == "oracle":
+            results[name]["profile"] = profile_verify_dispatch(eng, prompts)
+        del eng
+        torch.cuda.empty_cache()
+    emit("speculate", preset="llama3-1b", dtype="bfloat16", slots=SLOTS,
+         prompt_tokens=SPEC_PROMPT, new_tokens=SPEC_NEW, draft_k=SPEC_K,
+         page=SPEC_PAGE, max_len=SPEC_MAX_LEN, runs=results)
+    for name in ("ngram", "oracle"):
+        r = results[name]
+        if r["kernel_launches"] != r["expected_launches"]:
+            raise AssertionError(f"speculate {name}: launches "
+                                 f"{r['kernel_launches']} != "
+                                 f"{r['expected_launches']}")
+    if not (results["oracle"]["spec_dispatches"] > 0
+            and results["oracle"]["spec_accept_rate"] > 0):
+        raise AssertionError(f"speculate: the oracle drafter accepted "
+                             f"nothing: {results['oracle']}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_verify_dispatch(eng: InferenceEngine, prompts: list) -> dict:
+    """One verify call under torch.profiler, on the same prompts again (8
+    new tokens each), after the run's launch counts were read: the card's
+    idle share over it and the split kernel's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = _submit(eng, {f"prof{i}": p for i, p in enumerate(prompts)}, 8)
+    while any(r.first_token_at is None for r in reqs):
+        eng.step()            # prefill and the first-token flush
+    torch.cuda.synchronize()
+    before = eng.metrics["spec_dispatches"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()            # one verify call (the oracle always drafts)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if eng.metrics["spec_dispatches"] != before + 1:
+        raise AssertionError("the profiled step was not a verify call")
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    split = paged_decode_split_kernel
+    _drain(eng, reqs)
+    return {"what": "one verify call, 8 slots x ~513 context, K = 6",
+            "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if kernels else "not measured",
+            "device_idle_frac": (1 - busy_ms / wall_ms if kernels
+                                 else "not measured"),
+            "kernels_launched": len(kernels),
+            "split_kernel_ms": sum(e.device_time_total for e in kernels
+                                   if _device_name(split) in e.name) / 1e3}
+
+
 def _build_all() -> None:
     """One nvcc per CUDA source, all started together."""
     # one library per source: flash_bwd.cu holds the simt dQ and dK/dV
@@ -1033,14 +1418,17 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     _build_all()
 
-    paged_err = phase_kernel()
+    paged_err, paged_err_verify = phase_kernel()
     times = phase_time()
     flash_err = phase_flash_kernel()
     flash_times = phase_flash_time()
+    phase_lm_head_grad()
     train_launches = phase_train()
     parity_launches = phase_train_parity()
     launches = phase_serve()
     paged_parity_launches = phase_parity()
+    spec_parity_launches = phase_spec_parity()
+    verify_launches = phase_speculate()
     kernels = []
     for name, pk in PAGED_KERNELS.items():
         kernels.append({
@@ -1051,7 +1439,13 @@ def main() -> int:
             # path (parity) instead
             "launches": launches[name],
             "launches_f32_parity": paged_parity_launches[name],
-            "max_abs_err": paged_err[name], **times["uniform"][name],
+            # the speculative runs (`speculate`, bf16) and the f32
+            # speculative parity runs (`spec_parity`)
+            "launches_verify": verify_launches[name],
+            "launches_f32_spec_parity": spec_parity_launches[name],
+            "max_abs_err": paged_err[name],
+            "max_abs_err_verify_cases": paged_err_verify[name],
+            **times["uniform"][name],
             "skewed": times["skewed"][name]})
     for name, fk in FLASH_KERNELS.items():
         kernels.append({

@@ -8,11 +8,14 @@ blocks and partial tail blocks, shared read-only with a copy-on-write fork
 at the first conflicting write.
 
 Decode always runs the full ``[max_slots]`` batch; inactive slots write to
-private trash pages (pages ``0 .. max_slots-1``).
+private trash pages (pages ``0 .. max_slots-1``). With a
+``speculation_config`` each decode tick drafts K tokens per slot on the
+host and one verify call scores them all (``model.verify_block``).
 
-Not ported yet (later slices): speculative decoding, LoRA and tenancy, KV
-migration and disaggregated prefill, the host-RAM KV tier, weight
-residency, request deadlines, and the flight recorder and tracing spans.
+Not ported yet (later slices): LoRA and tenancy, KV migration and
+disaggregated prefill, the host-RAM KV tier, weight residency, request
+deadlines, and the flight recorder and tracing spans (among them the
+speculation round's event and the ``llm.speculate`` span).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 
 from ..models.llama import PRESETS, LlamaConfig
 from .executor import LocalEngineExecutor
+from .speculative import SpeculationConfig
 
 # Extra free-page headroom admission keeps on top of each request's
 # worst-case reservation (the JAX package's serve default).
@@ -60,6 +64,11 @@ class Request:
     shared_pages: int = 0
     partial_len: int = 0
     cow_page: int | None = None
+    # Speculation: drafted tokens verified for this request, drafts
+    # accepted, and verify rounds that rolled a draft back.
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_rollbacks: int = 0
 
 
 class QueueFullError(RuntimeError):
@@ -246,7 +255,8 @@ class InferenceEngine:
     ``cancel`` are thread-safe; ``step`` runs on one thread at a time.
 
     ``device=None`` means the CUDA card and raises where there is none;
-    pass ``device="cpu"`` to run on the CPU.
+    pass ``device="cpu"`` to run on the CPU. ``speculation_config`` (None,
+    a dict or a ``SpeculationConfig``) turns on speculative decoding.
     """
 
     def __init__(
@@ -268,6 +278,7 @@ class InferenceEngine:
         max_prefill_seqs_per_step: int = 2,
         decode_starvation_limit: int = 8,
         max_queued_requests: int = 0,
+        speculation_config=None,
         device=None,
     ):
         self.config = PRESETS[config] if isinstance(config, str) else config
@@ -304,6 +315,12 @@ class InferenceEngine:
                 attention_impl=attention_impl, device=device)
         self.executor = executor
         self.attention_impl = getattr(executor, "attention_impl", "dense")
+        # Speculative decoding: a host-side drafter proposes K tokens per
+        # active slot each decode tick and one verify call scores all K+1
+        # positions. None: plain decode, exactly the path without it.
+        self.speculation = SpeculationConfig.normalize(speculation_config)
+        self._drafter = (self.speculation.build_drafter()
+                         if self.speculation is not None else None)
         self.allocator = PageAllocator(self.num_pages)
         # Trash pages 0..max_slots-1 are permanently owned by their slot.
         for s in range(max_slots):
@@ -338,7 +355,19 @@ class InferenceEngine:
                         # Steps where live decode streams waited behind a
                         # prefill-only dispatch.
                         "decode_stall_steps": 0,
-                        "queue_rejects": 0, "admission_rejects": 0}
+                        "queue_rejects": 0, "admission_rejects": 0,
+                        # Speculation: drafted tokens verified, drafts
+                        # accepted, tokens emitted by verify calls, verify
+                        # calls, (call, active slot) pairs (the denominator
+                        # of spec_tokens_per_dispatch), and slot-rounds that
+                        # rolled back at least one drafted token (its
+                        # staged K/V went to the trash page).
+                        "spec_drafted_tokens": 0,
+                        "spec_accepted_tokens": 0,
+                        "spec_emitted_tokens": 0,
+                        "spec_dispatches": 0,
+                        "spec_slot_rounds": 0,
+                        "spec_rollbacks": 0}
 
     @staticmethod
     def total_pages(max_slots: int, max_len: int, page_size: int,
@@ -449,6 +478,29 @@ class InferenceEngine:
         r.slot = -1
 
     # ------------------------------------------------------------------ step
+    @property
+    def speculation_enabled(self) -> bool:
+        """True when decode ticks run draft + verify: a speculation config
+        is set and the executor has the verify entry point."""
+        return (self.speculation is not None
+                and getattr(self.executor, "supports_speculation", False))
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Fraction of drafted tokens the target model accepted (0 before
+        any draft)."""
+        drafted = self.metrics["spec_drafted_tokens"]
+        return (self.metrics["spec_accepted_tokens"] / drafted
+                if drafted else 0.0)
+
+    @property
+    def spec_tokens_per_dispatch(self) -> float:
+        """Tokens emitted per slot per verify call: 1.0 is what one plain
+        decode step yields per sequence, and an accept-0 round still emits
+        one, so it never falls below 1.0."""
+        n = self.metrics["spec_slot_rounds"]
+        return self.metrics["spec_emitted_tokens"] / n if n else 0.0
+
     @property
     def mixed_dispatch_enabled(self) -> bool:
         return (self.prefill_token_budget > 0
@@ -693,6 +745,12 @@ class InferenceEngine:
         return events
 
     def _decode_all(self) -> list[dict]:
+        if self.speculation_enabled:
+            events = self._speculative_decode()
+            if events is not None:
+                return events
+            # No slot drafted: the plain fused burst beats a verify that
+            # could only emit one token a slot.
         with self._lock:
             active = dict(self._active)
         if not active:
@@ -705,6 +763,64 @@ class InferenceEngine:
         self.metrics["decode_steps"] += K
         self.metrics["decode_dispatches"] += 1
         return self._emit_decode_events(active, tokens, K)
+
+    def _speculative_decode(self) -> list[dict] | None:
+        """One speculation round: draft K tokens per active slot on the host
+        (the drafter over the request's own tokens), then one verify call
+        scores all K+1 positions of every slot and emits the accepted run
+        plus one corrected or bonus token. A slot whose draft is wholly
+        rejected still advances one token. None when no slot drafted
+        anything (the caller runs the plain burst instead)."""
+        with self._lock:
+            active = dict(self._active)
+        if not active:
+            return []
+        K = self.speculation.num_draft_tokens
+        temps, eos_ids, remaining = self._decode_batch_args(active)
+        tok_mat = np.full((self.max_slots, K + 1), -1, np.int32)
+        tok_mat[:, 0] = self._tokens
+        drafted: dict[int, int] = {}
+        for slot, r in active.items():
+            d = self._drafter.draft(list(r.prompt) + list(r.generated), K)[:K]
+            if d:
+                tok_mat[slot, 1:1 + len(d)] = d
+                drafted[slot] = len(d)
+        if not drafted:
+            return None
+        toks, live = self.executor.verify(
+            self._block_tables, tok_mat, self._pos, temps, eos_ids,
+            remaining)  # [K+1, slots] each
+        self.metrics["spec_dispatches"] += 1
+        self.metrics["decode_dispatches"] += 1
+        return self._emit_speculative_events(active, toks, live, drafted)
+
+    def _emit_speculative_events(self, active: dict, toks, live,
+                                 drafted: dict) -> list[dict]:
+        """Emit each slot's verified run in step order: a slot stops at its
+        first non-live step, and host-side terminators (``_emit``) drop any
+        surplus rows, as in the plain burst."""
+        events: list[dict] = []
+        for slot, r in active.items():
+            emitted = 0
+            for j in range(toks.shape[0]):
+                if r.done or not live[j, slot]:
+                    break
+                r.pos += 1
+                events.append(self._emit(r, int(toks[j, slot])))
+                emitted += 1
+            dr = drafted.get(slot, 0)
+            accepted = min(max(0, emitted - 1), dr)
+            r.spec_drafted += dr
+            r.spec_accepted += accepted
+            m = self.metrics
+            m["spec_drafted_tokens"] += dr
+            m["spec_accepted_tokens"] += accepted
+            m["spec_emitted_tokens"] += emitted
+            m["spec_slot_rounds"] += 1
+            if dr and accepted < dr:
+                r.spec_rollbacks += 1
+                m["spec_rollbacks"] += 1
+        return events
 
     def _select_prefill_plans(self) -> list[dict]:
         """Chunks riding the next mixed dispatch: one chunk per prompt in

@@ -9,10 +9,12 @@ interaction goes through ``LocalEngineExecutor``:
   * ``sample_first(handles, temps)`` — batched first-token sampling;
   * ``decode(...)`` — K fused decode+sample steps, one host sync;
   * ``mixed(...)`` — prefill chunks plus the decode burst in one call;
+  * ``verify(...)`` — the speculative verify of every slot's draft, one
+    host sync;
   * ``copy_pages(src, dst)`` — the prefix cache's copy-on-write fork.
 
-Meshes, pipeline stages, LoRA stacks, speculation, KV migration and
-weight residency are not ported yet; the ``supports_*`` flags say so.
+Meshes, pipeline stages, LoRA stacks, KV migration and weight residency
+are not ported yet; the ``supports_*`` flags say so.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from .._device import resolve_device
 from ..models.llama import PRESETS, LlamaConfig, init_params
 from .model import (copy_pages, decode_loop, init_pages, mixed_dispatch,
-                    prefill_chunk, sample_first_batch)
+                    prefill_chunk, sample_first_batch, verify_block)
 
 
 def resolve_attention_impl(attention_impl: str = "auto",
@@ -44,7 +46,7 @@ class LocalEngineExecutor:
     """Params, page pool, sampling generator and hidden-state stash on one
     device."""
 
-    supports_speculation = False
+    supports_speculation = True
     supports_kv_migration = False
     supports_weight_residency = False
     supports_prefix_cow = True
@@ -149,6 +151,29 @@ class LocalEngineExecutor:
             self._generator, config=self.config, page_size=self.page_size,
             n_steps=n_steps, **self._decode_kwargs(pos, n_steps, block_tables))
         return toks.cpu().numpy()  # [n_steps, slots] — the one sync
+
+    def verify(self, block_tables: np.ndarray, tokens_mat: np.ndarray,
+               pos: np.ndarray, temps: np.ndarray, eos_ids: np.ndarray,
+               remaining: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Score one drafted continuation per slot in one call.
+        tokens_mat [slots, K+1]: column 0 the current token, columns 1..K
+        the draft (-1 pads). Returns ``(tokens [K+1, slots], live [K+1,
+        slots])`` (see ``model.verify_block``)."""
+        # The verify reads pool context [0, pos) only (the drafted rows
+        # ride the staging carry), so the page bound ignores the depth.
+        needed = max(1, (int(pos.max()) + self.page_size - 1)
+                     // self.page_size)
+        toks, live, _ = verify_block(
+            self.params, self.pages,
+            *self._decode_args(block_tables, tokens_mat, pos, temps, eos_ids,
+                               remaining),
+            self._generator, config=self.config, page_size=self.page_size,
+            n_draft=int(tokens_mat.shape[1]) - 1, paged=self.paged_attention,
+            live_pages=self._bucket_pages(needed, block_tables.shape[1]),
+            sample=bool((temps > 0).any()))
+        # tokens and live cross to the host in one copy: the one sync
+        out = torch.stack([toks, live.to(torch.int32)]).cpu().numpy()
+        return out[0], out[1].astype(bool)
 
     def copy_pages(self, src, dst) -> None:
         copy_pages(self.pages, self._put(np.asarray(src, np.int64)),

@@ -26,7 +26,9 @@ Paged decode (``paged=True``): the pool is read-only across a K-step
 dispatch. Each step's fresh K/V goes to a staging carry
 ``[L, slots, KH, SC, D]`` that the decode kernel folds in after the pool
 pages, and ``commit_staging`` writes the carry back with one scatter at
-the dispatch boundary.
+the dispatch boundary. The speculative verify (``verify_block``) runs the
+same schedule over the K+1 drafted positions of every slot in one forward
+and commits only the accepted rows.
 """
 
 from __future__ import annotations
@@ -130,11 +132,15 @@ def decode_block(x, layer, kf, vf, l: int, block_tables, pos, write_idx,
     """One decoder block for a [n, 1, E] single-token batch against the
     full page pool (kf/vf [L, P, KH, page, D], ``l`` this layer's index).
 
-    ``paged=True`` runs the paged decode kernel with the staging carry
-    ``stage`` of the fused decode loop: this layer's fresh K/V goes to
+    ``paged=True`` runs the paged decode kernel. With the staging carry
+    ``stage`` of the fused decode loop, this layer's fresh K/V goes to
     staging row ``stage_step`` and the kernel folds rows [0, stage_step]
-    after the pool pages; the pool is not written. ``paged=False`` is the
-    dense gather, width capped by ``live_pages``, which writes the pool.
+    after the pool pages; the pool is not written. Without ``stage`` (the
+    single step, ``decode_step``) the fresh K/V rides the kernel's compat
+    mode (``k_cur``/``v_cur``) and is written to the pool after the
+    kernel, so the pool is never a kernel operand and a write target at
+    once. ``paged=False`` is the dense gather, width capped by
+    ``live_pages``, which writes the pool first.
     Returns the block's output; pool or staging is updated in place.
     """
     n = x.shape[0]
@@ -145,13 +151,22 @@ def decode_block(x, layer, kf, vf, l: int, block_tables, pos, write_idx,
     k = apply_rope(k, pos[:, None], theta=c.rope_theta)
     qg = q[:, :, 0].reshape(n, kh, g, c.head_dim)
     if paged:
-        ks, vs = stage
-        ks[l, :, :, stage_step] = k[:, :, 0].to(ks.dtype)
-        vs[l, :, :, stage_step] = v[:, :, 0].to(vs.dtype)
-        attn = paged_decode_attention(
-            qg, kf, vf, block_tables, pos, page_size=page_size,
-            live_pages=live_pages, layer=l, k_stage=ks, v_stage=vs,
-            stage_idx=stage_step)
+        k_tok, v_tok = k[:, :, 0], v[:, :, 0]          # [n, KH, D]
+        if stage is not None:
+            ks, vs = stage
+            ks[l, :, :, stage_step] = k_tok.to(ks.dtype)
+            vs[l, :, :, stage_step] = v_tok.to(vs.dtype)
+            attn = paged_decode_attention(
+                qg, kf, vf, block_tables, pos, page_size=page_size,
+                live_pages=live_pages, layer=l, k_stage=ks, v_stage=vs,
+                stage_idx=stage_step)
+        else:
+            attn = paged_decode_attention(
+                qg, kf, vf, block_tables, pos, k_tok, v_tok,
+                page_size=page_size, live_pages=live_pages, layer=l)
+            write_idx, offset = write_idx.long(), pos.long() % page_size
+            kf[l, write_idx, :, offset, :] = k_tok
+            vf[l, write_idx, :, offset, :] = v_tok
         attn = attn.reshape(n, 1, kh * g * c.head_dim)
     else:
         # Write each slot's new K/V at (its current page, offset), then
@@ -184,7 +199,8 @@ def _decode_logits(params, pages: dict, block_tables, tokens, pos,
     """One batched decode step over all slots. tokens/pos [slots];
     ``write_page_idx`` overrides the page each slot writes to (finished
     slots go to their trash page). Returns logits [slots, vocab] f32; the
-    pool (dense) or the staging carry (paged) is updated in place."""
+    pool (dense, or paged without ``stage``) or the staging carry (paged
+    with ``stage``) is updated in place."""
     c = config
     x = params["embed"][tokens.long()][:, None].to(c.dtype)   # [slots, 1, E]
     if write_page_idx is None:
@@ -235,6 +251,18 @@ def copy_pages(pages: dict, src, dst) -> dict:
     return pages
 
 
+def decode_step(params, pages: dict, block_tables, tokens, pos,
+                config: LlamaConfig, page_size: int, write_page_idx=None,
+                paged: bool = False, live_pages: int | None = None):
+    """One batched decode step over all slots, writing each slot's fresh
+    K/V at ``pos`` into the pool (paged: the kernel's compat mode, then the
+    write). Returns (logits [slots, vocab] f32, pages)."""
+    logits = _decode_logits(params, pages, block_tables, tokens, pos, config,
+                            page_size, write_page_idx=write_page_idx,
+                            paged=paged, live_pages=live_pages)
+    return logits, pages
+
+
 def _sample(logits, temps, generator: torch.Generator, sample: bool):
     """Greedy where temp <= 0, tempered categorical elsewhere. ``sample``
     False (no slot has temp > 0) skips the draw."""
@@ -244,6 +272,28 @@ def _sample(logits, temps, generator: torch.Generator, sample: bool):
     probs = torch.softmax(logits / temps.clamp(min=1e-6)[:, None], dim=-1)
     sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
     return torch.where(temps > 0.0, sampled, greedy).to(torch.int32)
+
+
+def decode_and_sample(params, pages: dict, block_tables, tokens, pos, temps,
+                      generator: torch.Generator, config: LlamaConfig,
+                      page_size: int, paged: bool = False,
+                      live_pages: int | None = None):
+    """``decode_step`` and sampling in one call: greedy where temp <= 0,
+    tempered categorical elsewhere. Returns (tokens [slots] int32,
+    pages)."""
+    logits, pages = decode_step(params, pages, block_tables, tokens, pos,
+                                config, page_size, paged=paged,
+                                live_pages=live_pages)
+    return _sample(logits, temps, generator, True), pages
+
+
+def sample_first_token(last_hidden, lm_head, temp: float,
+                       generator: torch.Generator):
+    """First-token sampling after prefill: last_hidden [E] -> token []
+    int32, greedy at temp <= 0. ``temp`` is a host number."""
+    logits = (last_hidden @ lm_head).float()[None]
+    temps = torch.full((1,), float(temp), device=logits.device)
+    return _sample(logits, temps, generator, temp > 0)[0]
 
 
 def sample_first_batch(hiddens, lm_head, temps, generator: torch.Generator):
@@ -326,3 +376,148 @@ def mixed_dispatch(params, pages: dict, prefill_ops, block_tables, tokens,
         generator, config=config, page_size=page_size, n_steps=n_steps,
         paged=paged, live_pages=live_pages)
     return toks, pages, tuple(hiddens)
+
+
+def verify_block(params, pages: dict, block_tables, tokens_mat, pos, temps,
+                 eos_ids, remaining, generator: torch.Generator,
+                 config: LlamaConfig, page_size: int, n_draft: int,
+                 paged: bool = False, live_pages: int | None = None,
+                 sample: bool = True):
+    """Speculative verify: score all ``n_draft + 1`` positions of every
+    slot's drafted continuation in one forward.
+
+    tokens_mat [slots, S] int32, S = n_draft + 1: column 0 is each slot's
+    current token (the one plain decode would feed at ``pos``), columns
+    1..K its draft; -1 pads a short draft (rejected, never emitted). pos
+    [slots]: the pool holds K/V for [0, pos), as before a decode step.
+
+    The forward is a small batched prefill chunk. Its K/V goes only to a
+    staging carry [L, slots, KH, stage_rows(S), D]; the paged route calls
+    the decode kernel once per position j with staging rows [0, j] (the
+    decode loop's step-j schedule), the dense route masks the pool gather
+    strictly below ``pos`` and adds the causal self block. Acceptance:
+
+      * temp <= 0: position j emits ``argmax(p_j)`` and draft j+1 is
+        accepted iff it equals it, so every emitted token is the one plain
+        greedy decode would emit;
+      * temp > 0: rejection sampling. Draft d is accepted with probability
+        ``p_j(d)``; a rejection emits a sample of the residual
+        ``p_j * (1 - onehot(d))``, and the position after the last draft
+        samples ``p_j`` itself, so the emitted distribution is the
+        target's. Draws come from ``generator``; ``sample=False`` says no
+        slot has temp > 0 (the caller knows from its host copy) and skips
+        them.
+
+    ``live[j, s]``: step j of slot s is emitted. live_0 = remaining > 0;
+    live_{j+1} = live_j and accepted and not EOS and within ``remaining``.
+    ``commit_staging`` writes live rows to their real (page, offset) and
+    every other row to the slot's trash page, so a rejected branch never
+    touches the pool and shared prefix pages stay as they were. A slot that
+    accepts nothing still emits position 0's token.
+
+    Returns ``(tokens [S, slots] int32, live [S, slots] bool, pages)``; the
+    pool is updated in place.
+    """
+    c = config
+    n, S = tokens_mat.shape
+    if S != n_draft + 1:
+        raise ValueError(f"tokens_mat has {S} columns, not n_draft + 1 = "
+                         f"{n_draft + 1}")
+    dev = tokens_mat.device
+    kh, g, d = c.n_kv_heads, c.n_heads // c.n_kv_heads, c.head_dim
+    steps = torch.arange(S, dtype=torch.int32, device=dev)
+    positions = pos[:, None] + steps[None, :]                # [n, S]
+    x = params["embed"][tokens_mat.clamp(min=0).long()].to(c.dtype)
+    stage_shape = (c.n_layers, n, kh, stage_rows(S), d)
+    ks = torch.zeros(stage_shape, dtype=pages["k"].dtype, device=dev)
+    vs = torch.zeros(stage_shape, dtype=pages["v"].dtype, device=dev)
+    kf, vf = pages["k"], pages["v"]
+    if not paged:
+        gather_tables = block_tables
+        if live_pages is not None and live_pages < block_tables.shape[1]:
+            gather_tables = block_tables[:, :live_pages]
+        max_ctx = gather_tables.shape[1] * page_size
+        ctx_live = (torch.arange(max_ctx, device=dev)[None, :]
+                    < pos.long()[:, None])                   # [n, ctx]
+        causal = steps[:, None] >= steps[None, :]            # [S, S]
+        scale = d ** -0.5
+    for l in range(c.n_layers):
+        layer = _layer(params, l)
+        h = rms_norm(x, layer["attn_norm"], eps=c.norm_eps)
+        q, k, v = _project_qkv(h, layer)                     # [n, H|KH, S, D]
+        q = apply_rope(q, positions, theta=c.rope_theta)
+        k = apply_rope(k, positions, theta=c.rope_theta)
+        # All S rows are staged; the commit, not the stage, gates the pool.
+        ks[l, :, :, :S] = k.to(ks.dtype)
+        vs[l, :, :, :S] = v.to(vs.dtype)
+        if paged:
+            # [S, n, KH, G, D]: each position's queries contiguous for the
+            # kernel, which reads the pool [0, pos) and staged rows [0, j].
+            qs = q.reshape(n, kh, g, S, d).permute(3, 0, 1, 2, 4).contiguous()
+            attn = torch.stack([paged_decode_attention(
+                qs[j], kf, vf, block_tables, pos + j, page_size=page_size,
+                live_pages=live_pages, layer=l, k_stage=ks, v_stage=vs,
+                stage_idx=j) for j in range(S)], dim=3)     # [n, KH, G, S, D]
+        else:
+            qg = q.reshape(n, kh, g, S, d)
+            ck = _gather_ctx(kf, l, gather_tables)           # [n, KH, ctx, D]
+            cv = _gather_ctx(vf, l, gather_tables)
+            s_ctx = torch.einsum("nkgsd,nktd->nkgst", qg, ck).float()
+            s_self = torch.einsum("nkgsd,nktd->nkgst", qg, k).float()
+            s_ctx = (s_ctx * scale).masked_fill(
+                ~ctx_live[:, None, None, None], float("-inf"))
+            s_self = (s_self * scale).masked_fill(~causal, float("-inf"))
+            probs = torch.softmax(torch.cat([s_ctx, s_self], dim=-1), dim=-1)
+            p_ctx = probs[..., :max_ctx].to(c.dtype)
+            p_self = probs[..., max_ctx:].to(c.dtype)
+            attn = (torch.einsum("nkgst,nktd->nkgsd", p_ctx, cv)
+                    + torch.einsum("nkgst,nktd->nkgsd", p_self, v))
+        flat = attn.reshape(n, c.n_heads, S, d).transpose(1, 2).reshape(
+            n, S, -1)
+        out = torch.einsum("nsf,fe->nse", flat,
+                           layer["wo"].reshape(c.n_heads * d, c.hidden))
+        x = _mlp(x + out, layer, c)
+    hidden = rms_norm(x, params["final_norm"], eps=c.norm_eps)   # [n, S, E]
+    logits = torch.einsum("nse,ev->nsv", hidden, params["lm_head"]).float()
+
+    # ----- acceptance and emission, on the device -----
+    # The draft considered at step j is tokens_mat[:, j + 1]; the last step
+    # has none, and its emission is the bonus token.
+    d_ext = torch.cat([tokens_mat[:, 1:], torch.full(
+        (n, 1), -1, dtype=tokens_mat.dtype, device=dev)], dim=1)
+    valid = d_ext >= 0
+    d_clip = d_ext.clamp(min=0).long()
+    greedy = logits.argmax(dim=-1)                           # [n, S]
+    o = greedy
+    accept = valid & (greedy == d_clip)
+    if sample:
+        p = torch.softmax(logits / temps.clamp(min=1e-6)[:, None, None],
+                          dim=-1)
+        p_draft = p.gather(-1, d_clip[..., None])[..., 0]
+        u = torch.rand(p_draft.shape, generator=generator, device=dev)
+        accept_sampled = valid & (u < p_draft)
+        # The residual for a one-hot proposal: p with the draft zeroed.
+        padj = p.scatter(-1, d_clip[..., None], torch.where(
+            valid, torch.zeros_like(p_draft), p_draft)[..., None])
+        resample = torch.multinomial(
+            (padj + 1e-30).reshape(n * S, -1), 1,
+            generator=generator).reshape(n, S)
+        sampled_on = (temps > 0.0)[:, None]
+        o = torch.where(sampled_on,
+                        torch.where(accept_sampled, d_clip, resample), greedy)
+        accept = torch.where(sampled_on, accept_sampled, accept)
+    o = o.to(torch.int32)
+    cont = (accept & (o != eos_ids[:, None])
+            & (remaining[:, None] > steps[None, :] + 1))
+    live = torch.cat([torch.ones(n, 1, dtype=torch.bool, device=dev),
+                      cont[:, :-1].int().cumprod(dim=1).bool()], dim=1)
+    live &= (remaining > 0)[:, None]                         # [n, S]
+
+    # The commit: live rows to their real (page, offset), the rest to the
+    # slot's trash page (slot i's is page i).
+    page_of = block_tables.long().gather(1, torch.clamp(
+        positions.long() // page_size, max=block_tables.shape[1] - 1))
+    trash = torch.arange(n, device=dev)
+    widx = torch.where(live, page_of, trash[:, None])        # [n, S]
+    commit_staging(pages, (ks, vs), widx.t(), pos, S, page_size)
+    return o.t(), live.t(), pages

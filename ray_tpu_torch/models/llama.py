@@ -239,16 +239,59 @@ def train_flops_per_token(config: LlamaConfig, seq: int) -> float:
     return 6.0 * n_params + attn
 
 
+# dh = g·wᵀ reduces over the whole vocabulary. cuBLAS's bf16 products on
+# an H100 accumulate with an error that grows in proportion to the
+# reduction's length (chip_smoke.py's lm_head_grad phase shows it at the
+# full vocabulary), so that reduction runs in pieces of at most this many
+# terms, each product float32, summed in float32.
+LM_HEAD_MAX_K = 16_384
+
+
+def _mm_f32(a, b):
+    """a @ b with a float32 result from bf16 operands: cuBLAS with a
+    float32 output on the card; widened operands elsewhere (the CPU has
+    no ``out_dtype``), which gives the same numbers, since products of
+    bf16 values are exact in float32."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def lm_head_grads_f32(g, h, w):
+    """The bf16 lm_head backward's two products, ``dh = g·wᵀ`` and
+    ``dw = hᵀ·g``, in float32 before their final rounding. g [C, V] is the
+    float32 logit gradient, h [C, E] and w [E, V] bf16.
+
+    JAX's transpose of the f32-result einsum multiplies the float32 g by
+    the bf16 operand. cuBLAS takes one operand dtype, and widening w to
+    float32 would copy [E, V] every chunk, so g is split in two bf16 terms,
+    ``g_hi = bf16(g)`` and ``g_lo = bf16(g - g_hi)``, and each product is
+    the sum of the two terms' products: g keeps about 16 mantissa bits,
+    and h and w stay exact. dh's reduction over V runs in pieces of at
+    most ``LM_HEAD_MAX_K`` terms."""
+    g_hi = g.to(h.dtype)
+    g_lo = (g - g_hi).to(h.dtype)
+    dh = torch.zeros(g.shape[0], w.shape[0], dtype=torch.float32,
+                     device=g.device)
+    for part in (g_hi, g_lo):
+        for a, b in zip(part.split(LM_HEAD_MAX_K, dim=1),
+                        w.split(LM_HEAD_MAX_K, dim=1)):
+            dh += _mm_f32(a, b.t())
+    dw = _mm_f32(h.t(), g_hi)
+    dw += _mm_f32(h.t(), g_lo)
+    return dh, dw
+
+
 class _F32Logits(torch.autograd.Function):
     """h [C, E] @ w [E, V] with a float32 result from inputs of any float
     dtype: the JAX loss's ``preferred_element_type=f32``.
 
     bf16 inputs on the card go to cuBLAS as bf16 operands with a float32
     output; elsewhere h and w are widened first, which gives the same
-    numbers (products of bf16 values are exact in float32). In the bf16
-    backward the float32 logit gradient is rounded to bf16 for the two
-    products (the JAX transpose keeps it in float32); at float32 the two
-    agree."""
+    numbers. The backward keeps the float32 logit gradient at float32
+    precision in both products, as the JAX transpose does: widened off the
+    card and at float32, two bf16 terms on the card at bf16
+    (``lm_head_grads_f32``). Only the results are rounded."""
 
     @staticmethod
     def forward(ctx, h, w):
@@ -265,9 +308,7 @@ class _F32Logits(torch.autograd.Function):
             dh = torch.matmul(g, w.float().t())
             dw = torch.matmul(h.float().t(), g)
         else:
-            g = g.to(h.dtype)
-            dh = torch.mm(g, w.t())
-            dw = torch.mm(h.t(), g, out_dtype=torch.float32)
+            dh, dw = lm_head_grads_f32(g, h, w)
         return dh.to(h.dtype), dw.to(w.dtype)
 
 

@@ -2,7 +2,8 @@
 kernel and the one-block-per-(kv head, slot) kernel; flash-attention
 forward, dQ and dK/dV on both routes: the bf16 wgmma kernels and the
 float32 FMA kernels) against their plain PyTorch versions, on the card,
-and the entry points' default device.
+the entry points' default device, and the bf16 lm_head backward's
+products at llama3-1b widths.
 
 CUDA kernels have no interpreter, so these tests need a CUDA device and
 skip without one; on a machine with a card run them with
@@ -22,7 +23,7 @@ import torch
 
 from ray_tpu_torch.llm import pages_from_numpy, params_from_numpy
 from ray_tpu_torch.llm.model import init_pages
-from ray_tpu_torch.models.llama import PRESETS
+from ray_tpu_torch.models.llama import PRESETS, lm_head_grads_f32
 from ray_tpu_torch.ops.attention import (flash_attention, flash_dkdv_cuda,
                                          flash_dkdv_kernel, flash_dkdv_plain,
                                          flash_dkdv_sm90_cuda,
@@ -259,3 +260,24 @@ def test_entry_points_default_to_the_card():
     assert init_pages(cfg, 4, 8)["k"].device.type == "cuda"
     assert params_from_numpy({"w": np.ones(3, np.float32)})["w"].is_cuda
     assert pages_from_numpy(np_pages)["v"].is_cuda
+
+
+@requires_cuda
+def test_bf16_lm_head_grads_keep_the_f32_gradient_at_llama3_1b():
+    """One loss chunk at llama3-1b widths (2048 tokens, hidden 2048, vocab
+    128,256): the bf16 lm_head backward's float32 products against float64
+    products of the float32 g with the exact bf16 h and w, within 1e-4
+    (relative Frobenius)."""
+    cfg = PRESETS["llama3-1b"]
+    c, e, v = 2048, cfg.hidden, cfg.vocab_size
+    gen = torch.Generator("cuda").manual_seed(0)
+    g = torch.randn(c, v, generator=gen, device="cuda") * 1e-4
+    h = torch.randn(c, e, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(e, v, generator=gen, device="cuda")
+         * e ** -0.5).bfloat16()
+    dh, dw = lm_head_grads_f32(g, h, w)
+    assert dh.dtype == dw.dtype == torch.float32
+    g64 = g.double()
+    for got, want in ((dh, g64 @ w.double().t()), (dw, h.double().t() @ g64)):
+        err = torch.linalg.norm(got.double() - want) / torch.linalg.norm(want)
+        assert err.item() <= 1e-4

@@ -29,8 +29,8 @@ from ray_tpu.models.llama import train_flops_per_token as jax_flops
 from ray_tpu_torch.llm.weights import params_from_numpy
 from ray_tpu_torch.ops import attention
 from ray_tpu_torch.models.llama import (PRESETS, forward, forward_hidden,
-                                        init_params, loss_fn,
-                                        train_flops_per_token)
+                                        init_params, lm_head_grads_f32,
+                                        loss_fn, train_flops_per_token)
 from _torch_parity import numpy_params, tree_to_numpy
 
 TOL_FWD = 1e-5
@@ -250,3 +250,38 @@ def test_unported_options_raise(what):
         tcfg = dataclasses.replace(tcfg, attn_impl="ring")
     with pytest.raises(NotImplementedError):
         loss_fn(tparams, {"tokens": tokens}, tcfg, **kw)
+
+
+def _lm_head_inputs(c, e, v, seed):
+    """A float32 logit gradient and bf16 h [C, E], w [E, V]."""
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.standard_normal((c, v), np.float32) * 1e-4)
+    h = torch.from_numpy(rng.standard_normal((c, e), np.float32))
+    w = torch.from_numpy(rng.standard_normal((e, v), np.float32) * e ** -0.5)
+    return g, h.bfloat16(), w.bfloat16()
+
+
+def _rel_frobenius(got, want) -> float:
+    return float(torch.linalg.norm(got.double() - want)
+                 / torch.linalg.norm(want))
+
+
+# the last case splits dh's reduction over V in three pieces
+@pytest.mark.parametrize("c,e,v", [(64, 32, 256), (48, 64, 1000),
+                                   (8, 16, 40_000)])
+def test_bf16_lm_head_grads_keep_the_f32_gradient(c, e, v):
+    """The bf16 lm_head backward's float32 products, before their final
+    rounding, against float64 products of the float32 g with the exact
+    bf16 h and w: within 1e-4 (relative Frobenius). Rounding g to bf16
+    before the products (the arithmetic this replaced) is ~2e-3 off."""
+    g, h, w = _lm_head_inputs(c, e, v, seed=c + v)
+    want_dh = g.double() @ w.double().t()
+    want_dw = h.double().t() @ g.double()
+    dh, dw = lm_head_grads_f32(g, h, w)
+    assert dh.dtype == dw.dtype == torch.float32
+    assert dh.shape == (c, e) and dw.shape == (e, v)
+    assert _rel_frobenius(dh, want_dh) <= 1e-4
+    assert _rel_frobenius(dw, want_dw) <= 1e-4
+    g16 = g.bfloat16().float()
+    assert _rel_frobenius(g16 @ w.float().t(), want_dh) > 1e-3
+    assert _rel_frobenius(h.float().t() @ g16, want_dw) > 1e-3
