@@ -75,7 +75,32 @@ Phases, each printing JSON lines:
                 page 16, plain and with K = 6 (n-gram and oracle drafters):
                 tokens per second, acceptance, split-kernel launches (16 x 7
                 a verify call, read around each run), how many requests
-                match plain, and one verify call under torch.profiler.
+                match plain, and one verify call under torch.profiler;
+  lora_parity   f32 multi-LoRA serving at llama3-1b widths and 2 layers
+                (page 16, rank-16 adapters, the single kernel): a batch of
+                the base model and three adapters gives exactly the tokens
+                of the same requests served one by one, with the single
+                kernel's launches read around the batch, and one decode
+                step with the adapter stack is within 1e-4 (relative,
+                Frobenius) of the same step on weights with each slot's
+                adapter merged in (W + A·B), in its logits and in the K/V
+                it writes, while the step without the deltas is not;
+  lora_serve    the LoRA serving path: the ``serve`` geometry at llama3-1b
+                bf16 with ``LoRAServingConfig(max_loras=4, max_rank=16)``;
+                8 greedy requests of 64 tokens over the base model and four
+                adapters (.npz files under a temporary directory), then a
+                fifth adapter's request while all four are pinned. Every
+                request must finish, the fifth must be deferred, the split
+                kernel must run 16 launches a decode step, and the 8
+                requests must take as many decode dispatches as the same
+                traffic on one adapter; every adapter request's tokens
+                must differ from the no-LoRA run's, and one bf16 decode
+                step with the engine's stack must sit within 0.1 of f32
+                merged weights (logits and written K/V) while the step
+                without the deltas does not. Tokens per second, TTFT, the mean
+                adapter load time, the peak allocation and one decode
+                dispatch under torch.profiler, beside the same traffic with
+                no ``lora_config``.
 
 Then a JSON line of the kernels, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -88,8 +113,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -97,7 +124,9 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.llm import (Drafter, InferenceEngine, LocalEngineExecutor,
-                               Request, resolve_device)
+                               LoRAServingConfig, Request, resolve_device)
+from ray_tpu_torch.llm.lora import proj_dims, save_adapter
+from ray_tpu_torch.llm.model import decode_step, init_pages
 from ray_tpu_torch.models import llama as llama_model
 from ray_tpu_torch.models.llama import (PRESETS, init_params,
                                         lm_head_grads_f32, loss_fn,
@@ -958,10 +987,13 @@ def phase_train_parity(seed: int = 1) -> dict:
 
 
 # ------------------------------------------------------------------- serve
-def _submit(eng: InferenceEngine, prompts: dict,
-            max_new_tokens: int) -> list:
-    """Requests made (so stamped with their arrival) and added now."""
-    reqs = [Request(name, p, max_new_tokens=max_new_tokens)
+def _submit(eng: InferenceEngine, prompts: dict, max_new_tokens: int,
+            models: dict | None = None) -> list:
+    """Requests made (so stamped with their arrival) and added now;
+    ``models`` names each one's LoRA adapter (absent: the base model)."""
+    models = models or {}
+    reqs = [Request(name, p, max_new_tokens=max_new_tokens,
+                    model=models.get(name))
             for name, p in prompts.items()]
     for r in reqs:
         eng.add_request(r)
@@ -1062,14 +1094,44 @@ def profile_decode_dispatch(eng: InferenceEngine, rng, cfg) -> None:
     kernels gives the card's idle share; the decode kernel's share of the
     device time and the kernels launched per step come with it. Runs after
     the main path's launch count was read."""
-    from torch.profiler import ProfilerActivity, profile
+    emit("profile", **_profile_dispatch(eng, rng, cfg))
 
+
+def _ready_dispatch(eng: InferenceEngine, rng, cfg,
+                    models: list | None = None) -> list:
+    """8 requests of 512-token prompts (``models``: each one's adapter,
+    None for the base model), prefilled and given their first tokens, so
+    that the engine's next step is one pure 32-step decode dispatch."""
+    models = models or [None] * SLOTS
     reqs = _submit(eng, {f"prof{i}": rng.integers(0, cfg.vocab_size,
                                                    512).tolist()
-                         for i in range(SLOTS)}, STEPS + 1)
+                         for i in range(SLOTS)}, STEPS + 1,
+                   {f"prof{i}": m for i, m in enumerate(models)})
     while any(r.first_token_at is None for r in reqs):
         eng.step()            # prefill and the first-token flush
     torch.cuda.synchronize()
+    return reqs
+
+
+def _dispatch_ms(eng: InferenceEngine, rng, cfg,
+                 models: list | None = None) -> float:
+    """Wall time of one such decode dispatch, without the profiler."""
+    reqs = _ready_dispatch(eng, rng, cfg, models)
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _drain(eng, reqs)
+    return ms
+
+
+def _profile_dispatch(eng: InferenceEngine, rng, cfg,
+                      models: list | None = None) -> dict:
+    """``profile_decode_dispatch``'s measurement over ``_ready_dispatch``'s
+    requests."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = _ready_dispatch(eng, rng, cfg, models)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1085,12 +1147,14 @@ def profile_decode_dispatch(eng: InferenceEngine, rng, cfg) -> None:
                           if _device_name(pk.kernel) in e.name) / 1e3
                 for name, pk in PAGED_KERNELS.items()}
     _drain(eng, reqs)
-    emit("profile", what="one decode dispatch, 8 slots x 512 context, "
-         f"{STEPS} steps", wall_ms=wall_ms,
-         device_busy_ms=busy_ms if kernels else "not measured",
-         device_idle_frac=1 - busy_ms / wall_ms if kernels else "not measured",
-         decode_kernel_ms=sum(paged_ms.values()), paged_kernel_ms=paged_ms,
-         kernels_per_step=len(kernels) / STEPS)
+    return {"what": "one decode dispatch, 8 slots x 512 context, "
+            f"{STEPS} steps", "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if kernels else "not measured",
+            "device_idle_frac": (1 - busy_ms / wall_ms if kernels
+                                 else "not measured"),
+            "decode_kernel_ms": sum(paged_ms.values()),
+            "paged_kernel_ms": paged_ms,
+            "kernels_per_step": len(kernels) / STEPS}
 
 
 def phase_parity(seed: int = 1) -> dict:
@@ -1382,6 +1446,385 @@ def profile_verify_dispatch(eng: InferenceEngine, prompts: list) -> dict:
                                    if _device_name(split) in e.name) / 1e3}
 
 
+# -------------------------------------------------------------------- lora
+LORA_RANK = 16
+# A bf16 stack decode step at llama3-1b against f32 merged weights (W +
+# A·B), relative Frobenius over the 8 rows of its logits and of the K and
+# V rows it writes: the bf16 route's own rounding over 16 layers stays
+# inside it, while one row's delta lost or taken from another slot (of
+# the order of 1 relative on that row at these adapters' scale, so about
+# 0.35 over 8 rows) does not.
+LORA_BF16_STEP_TOL = 1e-1
+
+
+def write_adapters(cfg, names, directory: str, seed: int) -> None:
+    """ray_tpu/_tenancy_bench.py's random adapters (scale 0.5, A over
+    sqrt(E_in)) at rank 16, one .npz each, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    for name in names:
+        arrays = {}
+        for p, (ein, eout) in proj_dims(cfg).items():
+            arrays[f"{p}.A"] = rng.standard_normal(
+                (cfg.n_layers, ein, LORA_RANK), np.float32) * (0.5 / ein ** 0.5)
+            arrays[f"{p}.B"] = rng.standard_normal(
+                (cfg.n_layers, LORA_RANK, eout), np.float32) * 0.5
+        save_adapter(os.path.join(directory, f"{name}.npz"), arrays)
+
+
+def _merged(params: dict, stack: dict, slot: int, cfg, dtype) -> dict:
+    """The params in ``dtype`` with stack slot ``slot``'s adapter merged
+    in: W + A·B for wq, wk, wv and wo, the product taken in ``dtype``."""
+    L, E, D = cfg.n_layers, cfg.hidden, cfg.head_dim
+    shapes = {"wq": (L, E, cfg.n_heads, D), "wk": (L, E, cfg.n_kv_heads, D),
+              "wv": (L, E, cfg.n_kv_heads, D), "wo": (L, cfg.n_heads, D, E)}
+    layers = dict(params["layers"])
+    for p, shape in shapes.items():
+        ab = torch.bmm(stack[f"{p}.A"][:, slot].to(dtype),
+                       stack[f"{p}.B"][:, slot].to(dtype))
+        layers[p] = layers[p] + ab.reshape(shape)
+    return {**params, "layers": layers}
+
+
+def stack_step_check(params, stack, slots: list, cfg, page: int, pos: list,
+                     seed: int, ref_dtype) -> dict:
+    """One paged decode step of a batch whose row i runs on stack slot
+    ``slots[i]`` (0 = base), on random pages, against each row's step on
+    merged weights (W + A·B, built and run in ``ref_dtype`` on the dense
+    route, so the reference launches no kernel). Compares the logits and
+    the K and V rows the step writes at ``pos`` in every layer (one step
+    over a long random context hides a k or v delta in the logits; the
+    written rows show it). Returns, for each of the three, the relative
+    Frobenius error of the stack step over every row and that of the
+    step without the stack over the adapter rows (what a lost delta would
+    read); and whether the base rows equal the step without the stack."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, max_pages = len(slots), -(-(max(pos) + 1) // page)
+    pool = init_pages(cfg, n + n * max_pages, page, DEVICE)
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    for t in pool.values():
+        t.normal_(generator=gen)
+    tables = torch.arange(n, n + n * max_pages, dtype=torch.int32,
+                          device=DEVICE).reshape(n, max_pages)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=DEVICE)
+    tokens = torch.tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, n), dtype=torch.int32, device=DEVICE)
+    rows = torch.arange(n, device=DEVICE)
+    written = (tables[rows, pos_t // page].long(), (pos_t % page).long())
+    bucket = LocalEngineExecutor._bucket_pages
+
+    def step(p, c, paged: bool, **lora) -> dict:
+        live = bucket(-(-max(pos) // page) if paged
+                      else max(pos) // page + 1, max_pages)
+        pages = {k: v.to(c.dtype, copy=True) for k, v in pool.items()}
+        logits = decode_step(p, pages, tables, tokens, pos_t, c, page,
+                             paged=paged, live_pages=live, **lora)[0]
+        # [n, L, KH, D] (the indexed dims lead): each row's fresh K/V in
+        # every layer
+        return {"logits": logits.double(),
+                **{kv: pages[kv][:, written[0], :, written[1]].double()
+                   for kv in ("k", "v")}}
+
+    got = step(params, cfg, True, lora=stack, lora_idx=torch.tensor(
+        slots, dtype=torch.int32, device=DEVICE))
+    plain = step(params, cfg, True)
+    ref_cfg = dataclasses.replace(cfg, dtype=ref_dtype)
+    ref_params = {k: (v.to(ref_dtype) if torch.is_tensor(v)
+                      else {n_: w.to(ref_dtype) for n_, w in v.items()})
+                  for k, v in params.items()}
+    want = {}
+    for i, s in enumerate(slots):
+        ref = step(_merged(ref_params, stack, s, cfg, ref_dtype), ref_cfg,
+                   False)
+        for key, t in ref.items():
+            want.setdefault(key, []).append(t[i])
+    want = {key: torch.stack(t) for key, t in want.items()}
+    del ref_params
+    ad = [i for i, s in enumerate(slots) if s]
+    base = [i for i, s in enumerate(slots) if not s]
+
+    def rel(a, b):
+        return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+    return {"rel_frobenius_err": {k: rel(got[k], want[k]) for k in want},
+            "rel_frobenius_err_without_deltas": {
+                k: rel(plain[k][ad], want[k][ad]) for k in want},
+            "base_rows_equal_no_stack": all(
+                bool((got[k][base] == plain[k][base]).all()) for k in want)}
+
+
+def phase_lora_parity(seed: int = 3) -> dict:
+    """f32 multi-LoRA serving at llama3-1b widths, 2 layers, page 16,
+    rank-16 adapters: the base model and three adapters decoding in one
+    batch give exactly the tokens of the same requests served one by one;
+    one decode step with the stack (slots on the base model and the three
+    adapters) is within 1e-4 relative (Frobenius) of the same step on
+    each slot's merged weights, in its logits and its written K/V
+    (``stack_step_check``). Returns the paged kernels' launch counts
+    over the batch (the f32 route's single kernel only)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(PRESETS["llama3-1b"], n_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(DEVICE).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    prompts = {f"p{i}": rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate((5, 37, 70, 131))}
+    models = {"p1": "a1", "p2": "a2", "p3": "a3"}
+    with tempfile.TemporaryDirectory() as lora_dir:
+        write_adapters(cfg, ("a1", "a2", "a3"), lora_dir, seed)
+
+        def engine():
+            return InferenceEngine(
+                cfg, params, max_slots=4, max_len=256, page_size=SPEC_PAGE,
+                prefill_chunk_size=64, decode_steps_per_dispatch=8,
+                attention_impl="paged", enable_prefix_cache=False,
+                lora_config=LoRAServingConfig(
+                    max_loras=4, max_rank=LORA_RANK,
+                    dynamic_lora_loading_path=lora_dir))
+
+        eng = engine()
+        reset_paged_launches()
+        reqs = _submit(eng, prompts, 24, models)
+        _drain(eng, reqs)
+        torch.cuda.synchronize()
+        launches = paged_launches()
+        expected = _expected_paged(eng, cfg)
+        batch = [r.generated for r in reqs]
+        alone, base = [], []
+        one = engine()
+        for name, p in prompts.items():
+            for out, m in ((alone, models), (base, {})):
+                r = _submit(one, {name: p}, 24, m)[0]
+                _drain(one, [r])
+                out.append(r.generated)
+        # One decode step with the stack against merged weights.
+        step = stack_step_check(
+            params, eng.executor.lora_stack,
+            [0] + [eng.lora_manager.resident()[a] for a in ("a1", "a2", "a3")],
+            cfg, SPEC_PAGE, [200, 37, 131, 5], seed, torch.float32)
+    same = batch == alone
+    changed = sum(a != b for a, b in zip(alone[1:], base[1:]))
+    emit("lora_parity", dtype="float32", layers=2, page=SPEC_PAGE,
+         rank=LORA_RANK, requests=len(batch), tokens_per_request=24,
+         models=[models.get(k) for k in prompts], batch_equals_one_by_one=same,
+         adapter_requests_differing_from_base=changed,
+         decode_step=step, tolerance=1e-4, kernel_launches=launches,
+         expected_launches=expected, decode_steps=eng.metrics["decode_steps"],
+         adapter_stats=eng.lora_manager.stats())
+    if not same:
+        raise AssertionError(f"lora_parity: batch {batch} != one by one "
+                             f"{alone}")
+    if changed < 3:
+        raise AssertionError("lora_parity: the adapters change no tokens")
+    _check_stack_step("lora_parity", step, 1e-4)
+    if launches != expected or eng.metrics["decode_steps"] == 0:
+        raise AssertionError(f"lora_parity: launches {launches} != "
+                             f"{expected}")
+    del params, eng, one
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _check_stack_step(phase: str, step: dict, tol: float) -> None:
+    """The stack step's logits and written K/V sit within ``tol`` of
+    merged weights, those of the step without the deltas do not (so a
+    lost delta would fail), and the base rows are those of the step
+    without the stack."""
+    if not max(step["rel_frobenius_err"].values()) <= tol:
+        raise AssertionError(f"{phase}: stack step {step} > {tol} from "
+                             "merged weights")
+    if not min(step["rel_frobenius_err_without_deltas"].values()) > tol:
+        raise AssertionError(f"{phase}: the deltas move the step by no more "
+                             f"than {tol}: {step}")
+    if not step["base_rows_equal_no_stack"]:
+        raise AssertionError(f"{phase}: the base slot moved under a stack")
+
+
+# The lora_serve traffic: 8 requests of the serve geometry over the base
+# model and four adapters, in two waves so that prompts arrive while
+# others decode (base prompts ride mixed dispatches, adapter prompts
+# prefill on their own); the fifth adapter's request comes once the first
+# wave is done, while the second wave pins all four adapters.
+LORA_WAVES = ({"w0": (16, None), "w1": (40, "a1"), "w2": (77, None)},
+              {"w3": (120, "a2"), "w4": (160, "a3"), "w5": (200, "a4"),
+               "w6": (64, "a1"), "w7": (96, None)})
+LORA_LATE = {"late": (50, "a5")}
+
+
+def _lora_serve_run(params, cfg, lora_dir: str | None, rename, seed: int):
+    """One run of the lora_serve traffic; ``rename`` maps each adapter
+    name to the one this run uses (None: the base model), and
+    ``lora_dir`` None runs without a lora_config. Returns (engine,
+    requests, result)."""
+    rng = np.random.default_rng(seed)
+    lora = (LoRAServingConfig(max_loras=4, max_rank=LORA_RANK,
+                              dynamic_lora_loading_path=lora_dir)
+            if lora_dir else None)
+    eng = InferenceEngine(
+        cfg, params, max_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+        prefill_chunk_size=CHUNK, decode_steps_per_dispatch=STEPS,
+        attention_impl="auto", seed=seed, lora_config=lora)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resting = torch.cuda.memory_allocated()
+
+    def submit(wave):
+        prompts = {k: rng.integers(0, cfg.vocab_size, n).tolist()
+                   for k, (n, _) in wave.items()}
+        return _submit(eng, prompts, 64,
+                       {k: rename(m) for k, (_, m) in wave.items()})
+
+    reset_paged_launches()
+    t0 = time.monotonic()
+    wave1 = submit(LORA_WAVES[0])
+    while any(r.first_token_at is None for r in wave1):
+        eng.step()
+    wave2 = submit(LORA_WAVES[1])
+    _drain(eng, wave1)
+    eight = wave1 + wave2
+    late = submit(LORA_LATE)
+    dispatches_eight = None
+    while any(not r.done for r in eight + late):
+        eng.step()
+        if dispatches_eight is None and all(r.done for r in eight):
+            dispatches_eight = eng.metrics["decode_dispatches"]
+    torch.cuda.synchronize()
+    t_end = time.monotonic()
+    launches = paged_launches()
+    reqs = eight + late
+    n_tok = sum(len(r.generated) for r in reqs)
+    first = min(r.first_token_at for r in reqs)
+    ttft = [(r.first_token_at - r.arrived_at) * 1e3 for r in reqs]
+    m = eng.metrics
+    out = {"requests": len(reqs), "output_tokens": n_tok,
+           "wall_s": t_end - t0,
+           "decode_tok_per_s": (n_tok - len(reqs)) / (t_end - first),
+           "output_tok_per_s": n_tok / (t_end - t0),
+           "ttft_p50_ms": float(np.median(ttft)),
+           "ttft_max_ms": float(max(ttft)),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           # weights, pool and (with LoRA) the stack, before the traffic
+           "memory_allocated_at_start_bytes": resting,
+           "kernel_launches": launches,
+           "expected_launches": _expected_paged(eng, cfg),
+           "decode_steps": m["decode_steps"],
+           "decode_dispatches": m["decode_dispatches"],
+           "decode_dispatches_first_eight": dispatches_eight,
+           "engine_step_mix": dict(m["engine_step_mix"]),
+           "decode_stall_steps": m["decode_stall_steps"],
+           "adapter_defers": m["adapter_defers"],
+           "finish_reasons": sorted({r.finish_reason for r in reqs})}
+    for r in reqs:
+        toks = np.asarray(r.generated)
+        if (len(toks) != 64 or r.finish_reason != "length"
+                or toks.min() < 0 or toks.max() >= cfg.vocab_size):
+            raise AssertionError(f"lora_serve {r.request_id} ({r.model}): "
+                                 f"{r.finish_reason}, {r.generated}")
+    if eng.lora_manager is not None:
+        out["adapter_stats"] = eng.lora_manager.stats()
+        out["adapter_hot_load_ms"] = out["adapter_stats"]["avg_load_ms"]
+    return eng, reqs, out
+
+
+def phase_lora_serve(seed: int = 0) -> dict:
+    """The LoRA serve path at llama3-1b bf16 (see LORA_WAVES), beside the
+    same traffic on one adapter and with no lora_config; then one decode
+    dispatch of the LoRA and the no-LoRA engine under torch.profiler, and
+    one of each without it, in turns. Returns the paged kernels' launch
+    counts over the LoRA run."""
+    cfg = PRESETS["llama3-1b"]
+    params = init_params(cfg, torch.Generator(DEVICE).manual_seed(seed))
+    runs, tokens, engines, prof_models = {}, {}, {}, {}
+    rename = {"lora": lambda m: m, "one_adapter": lambda m: m and "a1",
+              "no_lora": lambda m: None}
+    with tempfile.TemporaryDirectory() as lora_dir:
+        t0 = time.perf_counter()
+        write_adapters(cfg, ("a1", "a2", "a3", "a4", "a5"), lora_dir, seed)
+        write_s = time.perf_counter() - t0
+        for name in ("lora", "one_adapter", "no_lora"):
+            eng, reqs, runs[name] = _lora_serve_run(
+                params, cfg, None if name == "no_lora" else lora_dir,
+                rename[name], seed)
+            tokens[name] = {r.request_id: r.generated for r in reqs}
+            del eng
+            torch.cuda.empty_cache()
+        # Fresh engines of the run's geometry for the dispatch measurements:
+        # half the slots on the base model, half on adapters a1..a4.
+        for name in ("lora", "no_lora"):
+            engines[name] = InferenceEngine(
+                cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
+                page_size=PAGE, prefill_chunk_size=CHUNK,
+                decode_steps_per_dispatch=STEPS, seed=seed,
+                lora_config=LoRAServingConfig(
+                    max_loras=4, max_rank=LORA_RANK,
+                    dynamic_lora_loading_path=lora_dir)
+                if name == "lora" else None)
+            prof_models[name] = [rename[name](f"a{i // 2 + 1}") if i % 2
+                                 else None for i in range(SLOTS)]
+            runs[name]["profile"] = _profile_dispatch(
+                engines[name], np.random.default_rng(seed), cfg,
+                prof_models[name])
+            runs[name]["profile"]["models"] = prof_models[name]
+        # The LoRA engine on all-base slots skips the LoRA terms: the
+        # no-LoRA engine's kernels a step.
+        runs["lora"]["profile_all_base"] = _profile_dispatch(
+            engines["lora"], np.random.default_rng(seed), cfg)
+        dispatch_ms = {"lora": [], "no_lora": []}
+        for name in ("no_lora", "lora", "lora", "no_lora"):
+            dispatch_ms[name].append(_dispatch_ms(
+                engines[name], np.random.default_rng(seed), cfg,
+                prof_models[name]))
+        # One bf16 decode step with the engine's stack (a1..a4 resident)
+        # against merged weights in f32.
+        resident = engines["lora"].lora_manager.resident()
+        step = stack_step_check(
+            params, engines["lora"].executor.lora_stack,
+            [resident[m] if m else 0 for m in prof_models["lora"]], cfg,
+            PAGE, [511, 37, 200, 1000, 5, 300, 64, 700], seed, torch.float32)
+        del engines
+        torch.cuda.empty_cache()
+    lora = runs["lora"]
+    # requests whose tokens differ from the no-lora run's, by what the
+    # lora run served them with
+    kinds = {k: m for w in (*LORA_WAVES, LORA_LATE) for k, (_, m) in w.items()}
+    adapter_reqs = [k for k, m in kinds.items() if m]
+    differing = {kind: sum(tokens["lora"][k] != tokens["no_lora"][k]
+                           for k, m in kinds.items() if bool(m) != base)
+                 for kind, base in (("adapter", False), ("base", True))}
+    emit("lora_serve", preset="llama3-1b", dtype="bfloat16", slots=SLOTS,
+         max_len=MAX_LEN, page=PAGE, chunk=CHUNK, steps=STEPS,
+         max_loras=4, rank=LORA_RANK, new_tokens=64,
+         adapter_write_s=write_s,
+         traffic=kinds,
+         runs=runs,
+         # one 32-step decode dispatch at 8 x 512 context without the
+         # profiler, the two engines in turns
+         dispatch_ms=dispatch_ms,
+         dispatch_ms_ratio=float(np.median(dispatch_ms["lora"])
+                                 / np.median(dispatch_ms["no_lora"])),
+         differing_from_no_lora=differing,
+         adapter_requests=len(adapter_reqs), decode_step=step,
+         tolerance=LORA_BF16_STEP_TOL)
+    if differing["adapter"] != len(adapter_reqs):
+        raise AssertionError(
+            f"lora_serve: {len(adapter_reqs) - differing['adapter']} "
+            "adapter requests gave the no-LoRA run's tokens")
+    _check_stack_step("lora_serve", step, LORA_BF16_STEP_TOL)
+    if lora["kernel_launches"] != lora["expected_launches"]:
+        raise AssertionError(f"lora_serve: launches {lora['kernel_launches']}"
+                             f" != {lora['expected_launches']}")
+    if lora["adapter_defers"] < 1:
+        raise AssertionError("lora_serve: the fifth adapter was not deferred")
+    if (lora["decode_dispatches_first_eight"]
+            != runs["one_adapter"]["decode_dispatches_first_eight"]):
+        raise AssertionError(
+            f"lora_serve: {lora['decode_dispatches_first_eight']} decode "
+            f"dispatches for four adapters against "
+            f"{runs['one_adapter']['decode_dispatches_first_eight']} for one")
+    del params
+    torch.cuda.empty_cache()
+    return lora["kernel_launches"]
+
+
 def _build_all() -> None:
     """One nvcc per CUDA source, all started together."""
     # one library per source: flash_bwd.cu holds the simt dQ and dK/dV
@@ -1429,6 +1872,8 @@ def main() -> int:
     paged_parity_launches = phase_parity()
     spec_parity_launches = phase_spec_parity()
     verify_launches = phase_speculate()
+    lora_parity_launches = phase_lora_parity()
+    lora_launches = phase_lora_serve()
     kernels = []
     for name, pk in PAGED_KERNELS.items():
         kernels.append({
@@ -1443,6 +1888,10 @@ def main() -> int:
             # speculative parity runs (`spec_parity`)
             "launches_verify": verify_launches[name],
             "launches_f32_spec_parity": spec_parity_launches[name],
+            # the LoRA serve run (`lora_serve`, bf16) and the f32 LoRA
+            # parity batch (`lora_parity`)
+            "launches_lora_serve": lora_launches[name],
+            "launches_f32_lora_parity": lora_parity_launches[name],
             "max_abs_err": paged_err[name],
             "max_abs_err_verify_cases": paged_err_verify[name],
             **times["uniform"][name],

@@ -12,16 +12,27 @@ private trash pages (pages ``0 .. max_slots-1``). With a
 ``speculation_config`` each decode tick drafts K tokens per slot on the
 host and one verify call scores them all (``model.verify_block``).
 
-Not ported yet (later slices): LoRA and tenancy, KV migration and
-disaggregated prefill, the host-RAM KV tier, weight residency, request
-deadlines, and the flight recorder and tracing spans (among them the
-speculation round's event and the ``llm.speculate`` span).
+With a ``lora_config`` the engine serves many LoRA adapters at once: a
+request's ``model`` names its adapter, admission pins it into a slot of
+the device stack (``lora.LoRAManager``; a request whose adapter finds
+every slot pinned waits at the head of the queue), and each decode
+burst or mixed dispatch carries every slot's adapter index, so slots of
+different adapters decode together. A prompt with an adapter prefills
+on its own, one chunk a step; prefix pages are cached per adapter; and
+speculation stays off, as in the JAX package.
+
+Not ported yet (later slices): tenant quotas and the fair queue, KV
+migration and disaggregated prefill, the host-RAM KV tier, weight
+residency, request deadlines, and the flight recorder and tracing spans
+(among them the speculation round's event, the ``llm.speculate`` and the
+``llm.adapter_load`` spans).
 """
 
 from __future__ import annotations
 
 import hashlib
 import itertools
+import logging
 import threading
 import time
 from collections import deque
@@ -32,7 +43,11 @@ import numpy as np
 
 from ..models.llama import PRESETS, LlamaConfig
 from .executor import LocalEngineExecutor
+from .lora import LoRAManager
 from .speculative import SpeculationConfig
+from .tenancy import AdapterCapacityError
+
+logger = logging.getLogger(__name__)
 
 # Extra free-page headroom admission keeps on top of each request's
 # worst-case reservation (the JAX package's serve default).
@@ -47,6 +62,9 @@ class Request:
     temperature: float = 0.0
     eos_id: int | None = None
     stop_ids: list[int] = field(default_factory=list)
+    # LoRA adapter id (None or "" = the base model), resolved to a stack
+    # slot (``lora_slot``) at admission
+    model: str | None = None
     # runtime state
     generated: list[int] = field(default_factory=list)
     slot: int = -1
@@ -55,6 +73,7 @@ class Request:
     block_table: list[int] = field(default_factory=list)
     done: bool = False
     finish_reason: str = ""
+    lora_slot: int = 0
     arrived_at: float = field(default_factory=time.monotonic)
     first_token_at: float | None = None
     cached_prefix_tokens: int = 0
@@ -256,7 +275,8 @@ class InferenceEngine:
 
     ``device=None`` means the CUDA card and raises where there is none;
     pass ``device="cpu"`` to run on the CPU. ``speculation_config`` (None,
-    a dict or a ``SpeculationConfig``) turns on speculative decoding.
+    a dict or a ``SpeculationConfig``) turns on speculative decoding;
+    ``lora_config`` (a ``LoRAServingConfig``) multi-LoRA serving.
     """
 
     def __init__(
@@ -279,6 +299,7 @@ class InferenceEngine:
         decode_starvation_limit: int = 8,
         max_queued_requests: int = 0,
         speculation_config=None,
+        lora_config=None,
         device=None,
     ):
         self.config = PRESETS[config] if isinstance(config, str) else config
@@ -312,7 +333,8 @@ class InferenceEngine:
             executor = LocalEngineExecutor(
                 self.config, params, max_slots=max_slots,
                 num_pages=self.num_pages, page_size=page_size, seed=seed,
-                attention_impl=attention_impl, device=device)
+                attention_impl=attention_impl, lora_config=lora_config,
+                device=device)
         self.executor = executor
         self.attention_impl = getattr(executor, "attention_impl", "dense")
         # Speculative decoding: a host-side drafter proposes K tokens per
@@ -321,6 +343,13 @@ class InferenceEngine:
         self.speculation = SpeculationConfig.normalize(speculation_config)
         self._drafter = (self.speculation.build_drafter()
                          if self.speculation is not None else None)
+        self.lora_manager = None
+        if lora_config is not None:
+            self.lora_manager = LoRAManager(self.config, lora_config,
+                                            executor.install_adapter)
+        # Host mirror of each slot's adapter index (0 = base), sent with
+        # every decode burst.
+        self._lora_idx = np.zeros(max_slots, np.int32)
         self.allocator = PageAllocator(self.num_pages)
         # Trash pages 0..max_slots-1 are permanently owned by their slot.
         for s in range(max_slots):
@@ -356,6 +385,9 @@ class InferenceEngine:
                         # prefill-only dispatch.
                         "decode_stall_steps": 0,
                         "queue_rejects": 0, "admission_rejects": 0,
+                        # Admissions deferred because every resident
+                        # adapter was pinned by an in-flight request.
+                        "adapter_defers": 0,
                         # Speculation: drafted tokens verified, drafts
                         # accepted, tokens emitted by verify calls, verify
                         # calls, (call, active slot) pairs (the denominator
@@ -438,10 +470,15 @@ class InferenceEngine:
             self._block_tables[r.slot, :] = r.slot  # back to trash page
             # A stale pos would inflate every later batch's live_pages.
             self._pos[r.slot] = 0
+            self._lora_idx[r.slot] = 0
         elif r.slot >= 0 and r.slot not in self._free_slots:
             self._free_slots.append(r.slot)
             self._block_tables[r.slot, :] = r.slot
             self._pos[r.slot] = 0
+            self._lora_idx[r.slot] = 0
+        if r.lora_slot and self.lora_manager is not None:
+            self.lora_manager.release(r.lora_slot)
+            r.lora_slot = 0
         if r.block_table:
             if self.enable_prefix_cache:
                 # The chain covers prompt + generated tokens whose K/V was
@@ -454,15 +491,13 @@ class InferenceEngine:
                 else:
                     valid = len(r.prompt) + max(0, len(r.generated) - 1)
                 valid = min(valid, len(r.block_table) * ps)
-                full_pages = valid // ps
-                h = hashlib.sha1()
-                parent = h.digest()
-                for i in range(full_pages):
-                    h.update(np.asarray(seq[i * ps:(i + 1) * ps],
-                                        np.int32).tobytes())
+                # Pages computed under one adapter serve only that adapter.
+                parent, chain = self._chain_hashes(seq[:valid], r.model)
+                full_pages = len(chain)
+                for i, digest in enumerate(chain):
                     self.allocator.register_prefix(
-                        r.block_table[i], h.digest(), parent)
-                    parent = h.digest()
+                        r.block_table[i], digest, parent)
+                    parent = digest
                 if self._cow_enabled and full_pages < len(r.block_table):
                     tail = tuple(int(t) for t in seq[full_pages * ps:valid])
                     if tail:
@@ -481,7 +516,8 @@ class InferenceEngine:
     @property
     def speculation_enabled(self) -> bool:
         """True when decode ticks run draft + verify: a speculation config
-        is set and the executor has the verify entry point."""
+        is set and the executor has the verify entry point (which it
+        lacks while it holds a LoRA stack)."""
         return (self.speculation is not None
                 and getattr(self.executor, "supports_speculation", False))
 
@@ -503,6 +539,10 @@ class InferenceEngine:
 
     @property
     def mixed_dispatch_enabled(self) -> bool:
+        """True when steps fuse prefill chunks into the decode burst. A
+        LoRA stack leaves it on: the burst carries every slot's adapter
+        index, and only prompts with an adapter keep to the one-chunk
+        prefill (plan selection skips them)."""
         return (self.prefill_token_budget > 0
                 and getattr(self.executor, "supports_mixed_dispatch", False))
 
@@ -590,9 +630,52 @@ class InferenceEngine:
                 self.metrics["prefix_hit_pages"] += len(hits)
                 self.metrics["prefix_cached_tokens"] += r.prefill_pos
                 self.metrics["prompt_tokens"] += len(r.prompt)
+                if r.model and self.lora_manager is not None:
+                    try:
+                        # A cold adapter loads here (file read and device
+                        # copy), on the engine's thread.
+                        r.lora_slot = self.lora_manager.acquire(r.model)
+                    except AdapterCapacityError:
+                        # Every resident adapter is pinned: the request
+                        # waits at the head of the queue until a finishing
+                        # request unpins one. The reuse accounting above
+                        # is backed out so the retry counts it once.
+                        self._release_admission_locked(r)
+                        self.metrics["prefix_hit_pages"] -= len(hits)
+                        self.metrics["prefix_cached_tokens"] -= \
+                            r.cached_prefix_tokens
+                        self.metrics["prompt_tokens"] -= len(r.prompt)
+                        self._waiting.appendleft(r)
+                        self.metrics["adapter_defers"] += 1
+                        break
+                    except Exception as e:
+                        self._release_admission_locked(r)
+                        r.done, r.finish_reason = True, "admission_failed"
+                        logger.warning("adapter %r load failed: %s",
+                                       r.model, e)
+                        continue
+                elif r.model:
+                    # An adapter asked of an engine with no LoRA stack.
+                    self._release_admission_locked(r)
+                    r.done, r.finish_reason = True, "admission_failed"
+                    continue
                 r.slot = self._free_slots.pop()
+                self._lora_idx[r.slot] = r.lora_slot
                 self._block_tables[r.slot, :len(r.block_table)] = r.block_table
                 self._prefilling.append(r)
+
+    def _release_admission_locked(self, r: Request) -> None:
+        """Undo a half-admitted request's page state: its shared and
+        fresh pages and the reserved COW fork."""
+        for pid in r.block_table:
+            self.allocator.release(pid)
+        r.block_table = []
+        if r.cow_page is not None:
+            self.allocator.release(r.cow_page)
+            r.cow_page = None
+        r.shared_pages = 0
+        r.partial_len = 0
+        r.prefill_pos = 0
 
     def _prefix_hits(self, r: Request) -> tuple[list[int],
                                                 tuple[int, int] | None]:
@@ -602,7 +685,7 @@ class InferenceEngine:
         ps = self.page_size
         max_hit_pages = (len(r.prompt) - 1) // ps
         self.metrics["prefix_lookup_pages"] += max_hit_pages
-        root, chain = self._chain_hashes(r.prompt)
+        root, chain = self._chain_hashes(r.prompt, r.model)
         hashes = chain[:max_hit_pages]
         hits = self.allocator.match_prefix(hashes)
         for pid in hits:
@@ -626,10 +709,13 @@ class InferenceEngine:
         if partial is not None:
             self.allocator.release(partial[0])
 
-    def _chain_hashes(self, tokens) -> tuple[bytes, list[bytes]]:
-        """Root hash plus the chain hash of every full token block."""
+    def _chain_hashes(self, tokens, model: str | None = None
+                      ) -> tuple[bytes, list[bytes]]:
+        """Adapter-scoped root hash plus the chain hash of every full
+        token block."""
         ps = self.page_size
         h = hashlib.sha1()
+        h.update((model or "").encode())  # adapter-scoped prefix space
         root = h.digest()
         hashes: list[bytes] = []
         for i in range(len(tokens) // ps):
@@ -680,7 +766,8 @@ class InferenceEngine:
         tokens[:take] = r.prompt[r.prefill_pos:r.prefill_pos + take]
         final = r.prefill_pos + take >= len(r.prompt)
         handle = next(self._handle_counter) if final else None
-        self.executor.prefill(bt, tokens, r.prefill_pos, handle, take)
+        self.executor.prefill(bt, tokens, r.prefill_pos, handle, take,
+                              lora_slot=r.lora_slot)
         self.metrics["prefill_chunks"] += 1
         r.prefill_pos += take
         if not final:
@@ -759,7 +846,7 @@ class InferenceEngine:
         K = self.decode_steps_per_dispatch
         tokens = self.executor.decode(
             self._block_tables, self._tokens, self._pos, temps, eos_ids,
-            remaining, K)  # [K, slots]
+            remaining, K, lora_idx=self._lora_idx)  # [K, slots]
         self.metrics["decode_steps"] += K
         self.metrics["decode_dispatches"] += 1
         return self._emit_decode_events(active, tokens, K)
@@ -835,6 +922,8 @@ class InferenceEngine:
                 break
             if budget < self.page_size:
                 break
+            if r.lora_slot:
+                continue  # a prompt with an adapter prefills on its own
             self._maybe_cow(r)  # fork a shared tail before writing it
             remaining = len(r.prompt) - r.prefill_pos
             chunk = self._chunk_bucket(remaining)
@@ -863,7 +952,8 @@ class InferenceEngine:
 
     def _mixed_step(self) -> list[dict] | None:
         """One fused call: the decode burst plus the selected prefill
-        chunks. None when no chunk was selected."""
+        chunks. None when no chunk was selected (every pending prompt has
+        an adapter, say): the step then runs the one-chunk schedule."""
         plans = self._select_prefill_plans()
         if not plans:
             return None
@@ -877,7 +967,7 @@ class InferenceEngine:
                                    "handle", "take")} for p in plans]
         tokens = self.executor.mixed(
             wire, self._block_tables, self._tokens, self._pos, temps,
-            eos_ids, remaining, K)  # [K, slots]
+            eos_ids, remaining, K, lora_idx=self._lora_idx)  # [K, slots]
         self.metrics["decode_steps"] += K
         self.metrics["decode_dispatches"] += 1
         for p in plans:

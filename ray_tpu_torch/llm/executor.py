@@ -11,10 +11,13 @@ interaction goes through ``LocalEngineExecutor``:
   * ``mixed(...)`` — prefill chunks plus the decode burst in one call;
   * ``verify(...)`` — the speculative verify of every slot's draft, one
     host sync;
-  * ``copy_pages(src, dst)`` — the prefix cache's copy-on-write fork.
+  * ``copy_pages(src, dst)`` — the prefix cache's copy-on-write fork;
+  * ``install_adapter(slot, arrays)`` — one adapter into the LoRA stack
+    (with ``lora_config``), which ``prefill(lora_slot=)``, ``decode`` and
+    ``mixed`` (``lora_idx``) then read.
 
-Meshes, pipeline stages, LoRA stacks, KV migration and weight residency
-are not ported yet; the ``supports_*`` flags say so.
+Meshes, pipeline stages, KV migration and weight residency are not
+ported yet; the ``supports_*`` flags say so.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from .._device import resolve_device
 from ..models.llama import PRESETS, LlamaConfig, init_params
+from .lora import init_lora_stack, install_slot
 from .model import (copy_pages, decode_loop, init_pages, mixed_dispatch,
                     prefill_chunk, sample_first_batch, verify_block)
 
@@ -43,10 +47,9 @@ def resolve_attention_impl(attention_impl: str = "auto",
 
 
 class LocalEngineExecutor:
-    """Params, page pool, sampling generator and hidden-state stash on one
-    device."""
+    """Params, page pool, sampling generator, hidden-state stash and (with
+    ``lora_config``) the LoRA adapter stack on one device."""
 
-    supports_speculation = True
     supports_kv_migration = False
     supports_weight_residency = False
     supports_prefix_cow = True
@@ -62,6 +65,7 @@ class LocalEngineExecutor:
         page_size: int,
         seed: int = 0,
         attention_impl: str = "auto",
+        lora_config=None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -80,6 +84,18 @@ class LocalEngineExecutor:
             seed ^ 0x5EED)
         # handle -> device hidden state [E] awaiting first-token sampling
         self._hidden: dict[int, torch.Tensor] = {}
+        self.lora_stack = None
+        if lora_config is not None:
+            self.lora_stack = init_lora_stack(
+                self.config, lora_config.max_loras, lora_config.max_rank,
+                self.device)
+
+    @property
+    def supports_speculation(self) -> bool:
+        """The verify call: off with a LoRA stack, whose per-slot deltas
+        ``verify_block`` does not carry (as in the JAX package); those
+        engines decode plain."""
+        return self.lora_stack is None
 
     def _put(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x)).to(self.device)
@@ -93,15 +109,24 @@ class LocalEngineExecutor:
             b *= 2
         return min(b, max_pages)
 
+    def install_adapter(self, slot: int, arrays: dict) -> None:
+        """Write one adapter's rank-padded A/B arrays into stack slot
+        ``slot`` in place (the ``LoRAManager``'s device hook)."""
+        install_slot(self.lora_stack, slot, arrays)
+
     # ------------------------------------------------------------ operations
     def prefill(self, block_table: np.ndarray, tokens: np.ndarray,
-                start_pos: int, handle: int | None, take: int) -> None:
+                start_pos: int, handle: int | None, take: int,
+                lora_slot: int = 0) -> None:
         live = self._bucket_pages(-(-int(start_pos) // self.page_size),
                                   block_table.shape[0])
+        # A base prompt (slot 0) adds no delta: it skips the LoRA terms.
         _, hidden = prefill_chunk(
             self.params, self.pages, self._put(block_table.astype(np.int32)),
             self._put(tokens.astype(np.int32)), int(start_pos),
-            config=self.config, page_size=self.page_size, live_pages=live)
+            config=self.config, page_size=self.page_size, live_pages=live,
+            lora=self.lora_stack if lora_slot else None,
+            lora_slot=int(lora_slot))
         if handle is not None:  # final chunk: stash for first-token sampling
             self._hidden[handle] = hidden[take - 1]
 
@@ -119,7 +144,7 @@ class LocalEngineExecutor:
         return toks.cpu().numpy()
 
     def _decode_kwargs(self, pos: np.ndarray, n_steps: int,
-                       block_tables: np.ndarray) -> dict:
+                       block_tables: np.ndarray, lora_idx=None) -> dict:
         if self.paged_attention:
             # The kernel reads pool context [0, pos) only: tokens made
             # inside the dispatch ride the staging carry.
@@ -128,9 +153,16 @@ class LocalEngineExecutor:
         else:
             # Dense attends in-pool up to max(pos) + n_steps - 1.
             needed = (int(pos.max()) + n_steps - 1) // self.page_size + 1
-        return {"paged": self.paged_attention,
-                "live_pages": self._bucket_pages(needed,
-                                                 block_tables.shape[1])}
+        kwargs = {"paged": self.paged_attention,
+                  "live_pages": self._bucket_pages(needed,
+                                                   block_tables.shape[1])}
+        if (self.lora_stack is not None and lora_idx is not None
+                and lora_idx.any()):
+            # each slot's adapter, put once a dispatch (0 = base); a batch
+            # on the base model alone skips the LoRA terms
+            kwargs["lora"] = self.lora_stack
+            kwargs["lora_idx"] = self._put(lora_idx.astype(np.int32))
+        return kwargs
 
     def _decode_args(self, block_tables, tokens, pos, temps, eos_ids,
                      remaining) -> tuple:
@@ -143,13 +175,15 @@ class LocalEngineExecutor:
 
     def decode(self, block_tables: np.ndarray, tokens: np.ndarray,
                pos: np.ndarray, temps: np.ndarray, eos_ids: np.ndarray,
-               remaining: np.ndarray, n_steps: int) -> np.ndarray:
+               remaining: np.ndarray, n_steps: int,
+               lora_idx: np.ndarray | None = None) -> np.ndarray:
         toks, _ = decode_loop(
             self.params, self.pages,
             *self._decode_args(block_tables, tokens, pos, temps, eos_ids,
                                remaining),
             self._generator, config=self.config, page_size=self.page_size,
-            n_steps=n_steps, **self._decode_kwargs(pos, n_steps, block_tables))
+            n_steps=n_steps,
+            **self._decode_kwargs(pos, n_steps, block_tables, lora_idx))
         return toks.cpu().numpy()  # [n_steps, slots] — the one sync
 
     def verify(self, block_tables: np.ndarray, tokens_mat: np.ndarray,
@@ -182,11 +216,13 @@ class LocalEngineExecutor:
     def mixed(self, prefill_plans: list, block_tables: np.ndarray,
               tokens: np.ndarray, pos: np.ndarray, temps: np.ndarray,
               eos_ids: np.ndarray, remaining: np.ndarray,
-              n_steps: int) -> np.ndarray:
+              n_steps: int, lora_idx: np.ndarray | None = None) -> np.ndarray:
         """One call carrying the decode burst plus prompt chunks.
         prefill_plans: dicts ``{"block_table", "tokens", "start_pos",
         "handle", "take"}``; a plan with a handle is its prompt's final
-        chunk and stashes position ``take - 1``'s hidden state."""
+        chunk and stashes position ``take - 1``'s hidden state. The
+        plans' prompts are base-model ones; ``lora_idx`` reaches the
+        decode burst."""
         ops, op_live = [], []
         for p in prefill_plans:
             bt = np.asarray(p["block_table"], np.int32)
@@ -201,7 +237,7 @@ class LocalEngineExecutor:
                                remaining),
             self._generator, config=self.config, page_size=self.page_size,
             n_steps=n_steps, prefill_live_pages=tuple(op_live),
-            **self._decode_kwargs(pos, n_steps, block_tables))
+            **self._decode_kwargs(pos, n_steps, block_tables, lora_idx))
         for p, hidden in zip(prefill_plans, hiddens):
             if p.get("handle") is not None:
                 self._hidden[p["handle"]] = hidden[p["take"] - 1]

@@ -29,6 +29,11 @@ pages, and ``commit_staging`` writes the carry back with one scatter at
 the dispatch boundary. The speculative verify (``verify_block``) runs the
 same schedule over the K+1 drafted positions of every slot in one forward
 and commits only the accepted rows.
+
+Multi-LoRA (``lora.py``): ``prefill_chunk(lora=, lora_slot=)`` adds one
+adapter's deltas to a prompt; the decode programs (``lora=``,
+``lora_idx=``) add each slot's own, from rows gathered once a call.
+``verify_block`` takes none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 from .._device import resolve_device
 from ..models.llama import LlamaConfig, _layer, _mlp, _project_qkv
 from ..ops import apply_rope, paged_decode_attention, rms_norm, stage_rows
+from .lora import add_qkv_deltas, add_wo_delta_, lora_delta_single, slot_rows
 
 
 def init_pages(config: LlamaConfig, num_pages: int, page_size: int,
@@ -62,7 +68,7 @@ def _gather_ctx(pool, l: int, tables):
 
 def prefill_chunk(params, pages: dict, block_table, tokens, start_pos: int,
                   config: LlamaConfig, page_size: int,
-                  live_pages: int | None = None):
+                  live_pages: int | None = None, lora=None, lora_slot=None):
     """Process one prompt chunk.
 
     tokens [C] int32; block_table [max_pages] int32; ``start_pos`` need not
@@ -74,6 +80,11 @@ def prefill_chunk(params, pages: dict, block_table, tokens, start_pos: int,
     Attends over the context ``[0, start_pos)`` plus the chunk itself
     (causal), writes the chunk's K/V into its pages in place, and returns
     ``(pages, hidden [C, E])``.
+
+    ``lora`` (the adapter stack, ``lora.init_lora_stack``) with
+    ``lora_slot`` (an int) adds that adapter's deltas to q, k and v before
+    RoPE, so the prompt's K/V carries it, and to the attention output's
+    projection.
     """
     c = config
     dev = tokens.device
@@ -101,6 +112,14 @@ def prefill_chunk(params, pages: dict, block_table, tokens, start_pos: int,
         layer = _layer(params, l)
         h = rms_norm(x, layer["attn_norm"], eps=c.norm_eps)
         q, k, v = _project_qkv(h, layer)                     # [1, H|KH, C, D]
+        if lora is not None:
+            def add(t, p):
+                d = lora_delta_single(h, lora[f"{p}.A"], lora[f"{p}.B"], l,
+                                      lora_slot)
+                return t + d.reshape(1, C, t.shape[1], c.head_dim).transpose(
+                    1, 2).to(t.dtype)
+
+            q, k, v = add(q, "wq"), add(k, "wk"), add(v, "wv")
         q = apply_rope(q, positions, theta=c.rope_theta)
         k = apply_rope(k, positions, theta=c.rope_theta)
         ck = _gather_ctx(kf, l, gather_table)                # [KH, ctx, D]
@@ -117,6 +136,10 @@ def prefill_chunk(params, pages: dict, block_table, tokens, start_pos: int,
                 + torch.einsum("kgct,ktd->kgcd", p_self, v[0]))
         attn = attn.reshape(1, c.n_heads, C, c.head_dim)
         out = torch.einsum("bhsd,hde->bse", attn, layer["wo"])
+        if lora is not None:
+            flat = attn.transpose(1, 2).reshape(1, C, -1)    # (head, d) order
+            out = out + lora_delta_single(flat, lora["wo.A"], lora["wo.B"], l,
+                                          lora_slot).to(out.dtype)
         x = _mlp(x + out, layer, c)
         # In place: distinct positions give distinct (page, offset) rows.
         kf[l, write_pages, :, write_offs, :] = k[0].transpose(0, 1)
@@ -128,7 +151,7 @@ def prefill_chunk(params, pages: dict, block_table, tokens, start_pos: int,
 def decode_block(x, layer, kf, vf, l: int, block_tables, pos, write_idx,
                  c: LlamaConfig, page_size: int, paged: bool = False,
                  live_pages: int | None = None, stage=None,
-                 stage_step: int | None = None):
+                 stage_step: int | None = None, lora_rows=None):
     """One decoder block for a [n, 1, E] single-token batch against the
     full page pool (kf/vf [L, P, KH, page, D], ``l`` this layer's index).
 
@@ -140,13 +163,18 @@ def decode_block(x, layer, kf, vf, l: int, block_tables, pos, write_idx,
     mode (``k_cur``/``v_cur``) and is written to the pool after the
     kernel, so the pool is never a kernel operand and a write target at
     once. ``paged=False`` is the dense gather, width capped by
-    ``live_pages``, which writes the pool first.
+    ``live_pages``, which writes the pool first. ``lora_rows``
+    (``lora.slot_rows``: each slot's adapter, gathered once a dispatch)
+    adds the per-slot deltas to q, k and v before RoPE and to the output
+    projection, on either route.
     Returns the block's output; pool or staging is updated in place.
     """
     n = x.shape[0]
     kh, g = kf.shape[2], c.n_heads // c.n_kv_heads
     h = rms_norm(x, layer["attn_norm"], eps=c.norm_eps)
     q, k, v = _project_qkv(h, layer)                   # [n, H|KH, 1, D]
+    if lora_rows is not None:
+        q, k, v = add_qkv_deltas(q, k, v, h, lora_rows, l)
     q = apply_rope(q, pos[:, None], theta=c.rope_theta)
     k = apply_rope(k, pos[:, None], theta=c.rope_theta)
     qg = q[:, :, 0].reshape(n, kh, g, c.head_dim)
@@ -189,16 +217,19 @@ def decode_block(x, layer, kf, vf, l: int, block_tables, pos, write_idx,
         attn = torch.einsum("nkgt,nktd->nkgd", probs, cv).reshape(
             n, 1, kh * g * c.head_dim)
     out = torch.einsum("bsf,fe->bse", attn, layer["wo"].reshape(-1, c.hidden))
+    if lora_rows is not None:
+        add_wo_delta_(out, attn, lora_rows, l)
     return _mlp(x + out, layer, c)
 
 
 def _decode_logits(params, pages: dict, block_tables, tokens, pos,
                    config: LlamaConfig, page_size: int, write_page_idx=None,
                    paged: bool = False, live_pages: int | None = None,
-                   stage=None, stage_step: int | None = None):
+                   stage=None, stage_step: int | None = None, lora_rows=None):
     """One batched decode step over all slots. tokens/pos [slots];
     ``write_page_idx`` overrides the page each slot writes to (finished
-    slots go to their trash page). Returns logits [slots, vocab] f32; the
+    slots go to their trash page); ``lora_rows`` carries each slot's
+    adapter (``lora.slot_rows``). Returns logits [slots, vocab] f32; the
     pool (dense, or paged without ``stage``) or the staging carry (paged
     with ``stage``) is updated in place."""
     c = config
@@ -210,7 +241,7 @@ def _decode_logits(params, pages: dict, block_tables, tokens, pos,
         x = decode_block(x, _layer(params, l), pages["k"], pages["v"], l,
                          block_tables, pos, write_page_idx, c, page_size,
                          paged=paged, live_pages=live_pages, stage=stage,
-                         stage_step=stage_step)
+                         stage_step=stage_step, lora_rows=lora_rows)
     hidden = rms_norm(x, params["final_norm"], eps=c.norm_eps)
     logits = torch.einsum("bse,ev->bsv", hidden, params["lm_head"])[:, 0]
     return logits.float()
@@ -251,15 +282,23 @@ def copy_pages(pages: dict, src, dst) -> dict:
     return pages
 
 
+def _rows(lora, lora_idx):
+    return None if lora is None else slot_rows(lora, lora_idx)
+
+
 def decode_step(params, pages: dict, block_tables, tokens, pos,
                 config: LlamaConfig, page_size: int, write_page_idx=None,
-                paged: bool = False, live_pages: int | None = None):
+                paged: bool = False, live_pages: int | None = None,
+                lora=None, lora_idx=None):
     """One batched decode step over all slots, writing each slot's fresh
     K/V at ``pos`` into the pool (paged: the kernel's compat mode, then the
-    write). Returns (logits [slots, vocab] f32, pages)."""
+    write). ``lora`` (the adapter stack) with ``lora_idx`` [slots] (each
+    slot's adapter, 0 = base) adds the per-slot adapter deltas. Returns
+    (logits [slots, vocab] f32, pages)."""
     logits = _decode_logits(params, pages, block_tables, tokens, pos, config,
                             page_size, write_page_idx=write_page_idx,
-                            paged=paged, live_pages=live_pages)
+                            paged=paged, live_pages=live_pages,
+                            lora_rows=_rows(lora, lora_idx))
     return logits, pages
 
 
@@ -277,13 +316,15 @@ def _sample(logits, temps, generator: torch.Generator, sample: bool):
 def decode_and_sample(params, pages: dict, block_tables, tokens, pos, temps,
                       generator: torch.Generator, config: LlamaConfig,
                       page_size: int, paged: bool = False,
-                      live_pages: int | None = None):
+                      live_pages: int | None = None, lora=None,
+                      lora_idx=None):
     """``decode_step`` and sampling in one call: greedy where temp <= 0,
     tempered categorical elsewhere. Returns (tokens [slots] int32,
     pages)."""
     logits, pages = decode_step(params, pages, block_tables, tokens, pos,
                                 config, page_size, paged=paged,
-                                live_pages=live_pages)
+                                live_pages=live_pages, lora=lora,
+                                lora_idx=lora_idx)
     return _sample(logits, temps, generator, True), pages
 
 
@@ -306,7 +347,8 @@ def sample_first_batch(hiddens, lm_head, temps, generator: torch.Generator):
 def decode_loop(params, pages: dict, block_tables, tokens, pos, temps,
                 eos_ids, remaining, generator: torch.Generator,
                 config: LlamaConfig, page_size: int, n_steps: int,
-                paged: bool = False, live_pages: int | None = None):
+                paged: bool = False, live_pages: int | None = None,
+                lora=None, lora_idx=None):
     """``n_steps`` decode+sample iterations in one call.
 
     Slots whose sequence finishes mid-loop (EOS, or ``remaining`` spent)
@@ -317,11 +359,14 @@ def decode_loop(params, pages: dict, block_tables, tokens, pos, temps,
 
     eos_ids [slots] int32 (-1 = none); remaining [slots] int32. For dense,
     ``live_pages`` must cover ``max(pos) + n_steps - 1``; for paged only
-    the pool context ``max(pos)``. Returns (tokens [n_steps, slots] int32,
-    pages).
+    the pool context ``max(pos)``. ``lora`` (the adapter stack) with
+    ``lora_idx`` [slots] int32 (0 = base) adds each slot's adapter; the
+    slots' rows are gathered once for all steps. Returns (tokens
+    [n_steps, slots] int32, pages).
     """
     n = tokens.shape[0]
     dev = tokens.device
+    lora_rows = _rows(lora, lora_idx)
     trash = torch.arange(n, device=dev)    # slot i's trash page is page i
     stage = None
     if paged:
@@ -341,7 +386,7 @@ def decode_loop(params, pages: dict, block_tables, tokens, pos, temps,
         logits = _decode_logits(
             params, pages, block_tables, tokens, cur, config, page_size,
             write_page_idx=write_idx, paged=paged, live_pages=live_pages,
-            stage=stage, stage_step=j if paged else None)
+            stage=stage, stage_step=j if paged else None, lora_rows=lora_rows)
         new_tok = _sample(logits, temps, generator, sample)
         remaining = remaining - (~done).to(remaining.dtype)
         done = done | (new_tok == eos_ids) | (remaining <= 0)
@@ -359,12 +404,14 @@ def mixed_dispatch(params, pages: dict, prefill_ops, block_tables, tokens,
                    pos, temps, eos_ids, remaining, generator: torch.Generator,
                    config: LlamaConfig, page_size: int, n_steps: int,
                    paged: bool = False, live_pages: int | None = None,
-                   prefill_live_pages: tuple = ()):
+                   prefill_live_pages: tuple = (), lora=None, lora_idx=None):
     """Token-budget mixed step: prefill chunk(s), then the full-batch decode
     burst, in one call. prefill_ops: ``(block_table, tokens, start_pos)``
     per admitted prompt; their pages are disjoint from every decoding
-    slot's. Returns ``(decode_tokens [n_steps, slots], pages, hiddens)``
-    with one ``[C_i, E]`` hidden per prefill op."""
+    slot's. ``lora``/``lora_idx`` reach the decode burst only: a prompt
+    with an adapter prefills on its own (``prefill_chunk(lora_slot=)``).
+    Returns ``(decode_tokens [n_steps, slots], pages, hiddens)`` with one
+    ``[C_i, E]`` hidden per prefill op."""
     hiddens = []
     for (p_bt, p_tokens, p_start), lp in zip(prefill_ops, prefill_live_pages):
         _, hidden = prefill_chunk(params, pages, p_bt, p_tokens, p_start,
@@ -374,7 +421,7 @@ def mixed_dispatch(params, pages: dict, prefill_ops, block_tables, tokens,
     toks, pages = decode_loop(
         params, pages, block_tables, tokens, pos, temps, eos_ids, remaining,
         generator, config=config, page_size=page_size, n_steps=n_steps,
-        paged=paged, live_pages=live_pages)
+        paged=paged, live_pages=live_pages, lora=lora, lora_idx=lora_idx)
     return toks, pages, tuple(hiddens)
 
 

@@ -309,6 +309,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one(model,
 
 def test_import_loads_no_jax_and_no_ray_tpu():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.llm.engine, "
+            "ray_tpu_torch.llm.lora, ray_tpu_torch.llm.tenancy, "
             "ray_tpu_torch.ops.paged_attention, ray_tpu_torch._cuda, "
             "ray_tpu_torch._device, "
             "ray_tpu_torch.ops.attention, ray_tpu_torch.models.llama\n"
