@@ -100,7 +100,40 @@ Phases, each printing JSON lines:
                 without the deltas does not. Tokens per second, TTFT, the mean
                 adapter load time, the peak allocation and one decode
                 dispatch under torch.profiler, beside the same traffic with
-                no ``lora_config``.
+                no ``lora_config``;
+  migrate_parity
+                f32 KV migration at llama3-1b widths and 2 layers (page 16,
+                the single kernel, 8 greedy tokens a request; a 71-token
+                prompt, 4 full pages and a 7-row tail): the export/import
+                round trip (pages ``torch.equal`` to the source's, a prompt
+                that leaves the tail mid-page COW-forks it, a duplicate
+                import leaks no page), the live stream (one page a chunk
+                while the source prefills), source death after 2 chunks,
+                live (mid-prefill) and static, where the importer keeps a
+                strict prefix and every source page returns to refcount 0,
+                the host-RAM tier (restored pages equal the spilled ones)
+                and an import under pool pressure (one failure, a cold
+                prefill). Every request's tokens equal a cold dense
+                engine's, with the single kernel's launches read around;
+  migrate       KV migration at llama3-1b bf16 in the migration bench's
+                geometry (ray_tpu/_migration_bench.py: a 2,048-token
+                prompt, page 64, chunks of 256, 2 slots, max_len + 128):
+                engine A prefills the prompt (prefill_only) and streams it
+                to engine B over the loop wire, two rounds, best kept
+                (``kv_migration_mb_s``); B's pages are ``torch.equal`` to
+                A's, and B's 32 greedy tokens equal A's from the same
+                layout (the streamed payload imported into A itself); TTFT
+                on B against a cold engine; then the host tier at the same
+                geometry (spill ms per page, restore time, tokens equal to
+                the hit before the eviction), with the split kernel's
+                launches read around (16 a decode step);
+  weights       weight residency at llama3-1b bf16 on an engine built from
+                a seed: demotion frees at least 0.99 of the weights' bytes,
+                promotion (ms, GB/s), the fingerprint and greedy tokens
+                unchanged, demotion refused while busy, the first request
+                promoting, a broadcast to 2 loopback readers (MB/s, both
+                fingerprints equal) and ``install_weights`` into a demoted
+                engine.
 
 Then a JSON line of the kernels, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -114,19 +147,28 @@ import dataclasses
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from ray_tpu_torch.llm import (Drafter, InferenceEngine, LocalEngineExecutor,
-                               LoRAServingConfig, Request, resolve_device)
+from ray_tpu_torch.dag.channel import TcpLoopReader, TcpLoopServer
+from ray_tpu_torch.llm import (Drafter, InferenceEngine, KVMigrationSource,
+                               LocalEngineExecutor, LoRAServingConfig,
+                               Request, WeightBroadcastSource,
+                               params_fingerprint, receive_kv_stream,
+                               receive_weight_stream, resolve_device,
+                               tree_bytes)
 from ray_tpu_torch.llm.lora import proj_dims, save_adapter
+from ray_tpu_torch.llm.migration import KV_MIGRATION_CHUNK_PAGES
 from ray_tpu_torch.llm.model import decode_step, init_pages
+from ray_tpu_torch.llm.weights import DEFAULT_CHUNK_BYTES
 from ray_tpu_torch.models import llama as llama_model
 from ray_tpu_torch.models.llama import (PRESETS, init_params,
                                         lm_head_grads_f32, loss_fn,
@@ -1825,6 +1867,589 @@ def phase_lora_serve(seed: int = 0) -> dict:
     return lora["kernel_launches"]
 
 
+# ----------------------------------------------------------------- migrate
+MIG_PARITY_PAGE, MIG_PARITY_NEW = 16, 8
+# The migration bench's geometry (ray_tpu/_migration_bench.py:
+# _raw_transfer_mb_s): a 2,048-token prompt, pages of 64, prefill chunks
+# of 256, 2 slots; max_len = prompt + 128 so the migrated prompt can decode.
+MIG_PROMPT, MIG_NEW = 2048, 32
+MIG_MAX_LEN = MIG_PROMPT + 128
+# demotion must free at least this share of the weights' bytes
+WEIGHTS_FREED_FRAC = 0.99
+
+
+def _prefill_only(eng: InferenceEngine, prompt: list) -> Request:
+    r = Request("src", list(prompt), max_new_tokens=1, prefill_only=True,
+                pin_for_export=True)
+    eng.add_request(r)
+    _drain(eng, [r])
+    if r.finish_reason != "prefilled" or r.generated or not r.export_pinned:
+        raise AssertionError(f"prefill_only: {r.finish_reason} "
+                             f"{r.generated} {r.export_pinned}")
+    return r
+
+
+def _serve_one(eng: InferenceEngine, prompt: list, n: int) -> Request:
+    [r] = _submit(eng, {f"q{time.perf_counter_ns()}": list(prompt)}, n)
+    _drain(eng, [r])
+    return r
+
+
+def _held(eng: InferenceEngine) -> dict:
+    """Pages the engine's allocator holds a ref on."""
+    return {p: c for p, c in eng.allocator.refcount.items() if c}
+
+
+def _reusable(eng: InferenceEngine) -> int:
+    a = eng.allocator
+    return len(a.free) + sum(1 for p in a.page_hash
+                             if not a.refcount.get(p, 0))
+
+
+def _check_stream(what: str, stats: dict, eng: InferenceEngine,
+                  covered: int) -> None:
+    """An expected migration: complete, every token covered, no cold
+    fallback."""
+    if not (stats["status"] == "ok" and stats["complete"]
+            and stats["cached_tokens"] == covered
+            and eng.metrics["kv_import_failures"] == 0):
+        raise AssertionError(f"{what}: {stats}, import failures "
+                             f"{eng.metrics['kv_import_failures']}, "
+                             f"expected {covered} tokens")
+
+
+def _pages_equal(a: InferenceEngine, ids_a, b: InferenceEngine,
+                 ids_b) -> bool:
+    ia = torch.tensor(ids_a, device=DEVICE)
+    ib = torch.tensor(ids_b, device=DEVICE)
+    return all(torch.equal(a.executor.pages[n][:, ia],
+                           b.executor.pages[n][:, ib]) for n in ("k", "v"))
+
+
+def _sum_expected(engines: list, cfg) -> dict:
+    total = {name: 0 for name in PAGED_KERNELS}
+    for eng in engines:
+        for name, n in _expected_paged(eng, cfg).items():
+            total[name] += n
+    return total
+
+
+def _death_live(engine, prompt: list, ps: int) -> tuple:
+    """A live source that dies after 2 chunks while its request is still
+    prefilling (this thread steps the engine, so the order is fixed).
+    Returns (source engine, importer stats, importer engine, whether the
+    request was still prefilling when the source died)."""
+    a = engine(prefill_chunk_size=ps)
+    r = Request("src", list(prompt), max_new_tokens=1, prefill_only=True,
+                pin_for_export=True)
+    a.add_request(r)
+    src = KVMigrationSource(a, r, chunk_pages=1, _die_after_chunks=2)
+    c = engine()
+    got = {}
+    reader = threading.Thread(target=lambda: got.update(
+        receive_kv_stream(c, src.address, timeout_s=30)))
+    reader.start()
+    deadline = time.monotonic() + 30
+    while not (src.stats["bytes"] and not src._server.occupancy()):
+        if time.monotonic() > deadline:
+            raise AssertionError("migrate_parity: the reader never connected")
+        time.sleep(0.005)
+    while r.prefill_pos < 2 * ps:
+        a.step()
+    src.join(timeout=30)
+    reader.join(timeout=30)
+    mid_prefill = not r.done
+    _drain(a, [r])
+    return a, got, c, mid_prefill
+
+
+def _wire_parts(before: list, after: list, n: int = 5) -> dict:
+    """Host ms of each part of one message's way over the loop wire, timed
+    alone: the named steps ``before``, the wire (the message written to a
+    loopback server and read back by one reader), then ``after``, each
+    fed the previous one's result, a synchronize around each; the median
+    of ``n`` runs of each part, and their sum."""
+    server = TcpLoopServer(n_slots=8)
+    reader = TcpLoopReader(server.address)
+    wire = ("wire", lambda blob: (server.write(blob), reader.read())[1])
+    times: dict = {}
+    try:
+        for _ in range(n):
+            x = None
+            for name, fn in before + [wire] + after:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = fn(x)
+                torch.cuda.synchronize()
+                times.setdefault(name, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+    finally:
+        reader.close()
+        server.close()
+    med = {name: float(np.median(v)) for name, v in times.items()}
+    return {**med, "sum": sum(med.values())}
+
+
+def phase_migrate_parity(seed: int = 4) -> dict:
+    """f32 KV migration at llama3-1b widths and 2 layers (page 16, the
+    single kernel, 8 greedy tokens a request): the export/import round
+    trip, the live stream, source death after 2 chunks (live and static),
+    the host-RAM tier and an import under pool pressure; every request's
+    tokens must equal a cold dense engine's. Returns the paged kernels'
+    launch counts over the paged engines."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(PRESETS["llama3-1b"], n_layers=2,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(DEVICE).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    ps, n = MIG_PARITY_PAGE, MIG_PARITY_NEW
+    geo = dict(max_slots=2, max_len=256, page_size=ps,
+               prefill_chunk_size=32, decode_steps_per_dispatch=8)
+    paged = []
+
+    def engine(**kw):
+        eng = InferenceEngine(cfg, params, attention_impl="paged",
+                              **{**geo, **kw})
+        paged.append(eng)
+        return eng
+
+    cold_eng = InferenceEngine(cfg, params, attention_impl="dense", **geo)
+    memo = {}
+
+    def cold(prompt):
+        if tuple(prompt) not in memo:
+            memo[tuple(prompt)] = cold_eng.generate(list(prompt), n)
+        return memo[tuple(prompt)]
+
+    def prompt(k):
+        return rng.integers(0, cfg.vocab_size, k).tolist()
+
+    p = prompt(4 * ps + 7)    # 4 full pages and a 7-row tail
+    cases = {}
+    reset_paged_launches()
+
+    # 1. round trip through one payload
+    a = engine()
+    r = _prefill_only(a, p)
+    payload = a.export_prefix_kv(p)
+    b = engine()
+    covered = b.import_prefix_kv(payload)
+    plan_a, plan_b = a.pin_prefix_for_export(p), b.pin_prefix_for_export(p)
+    equal_pages = _pages_equal(a, plan_a["page_ids"], b, plan_b["page_ids"])
+    a.release_export_pages(plan_a["page_ids"])
+    b.release_export_pages(plan_b["page_ids"])
+    rb = _serve_one(b, p, n)
+    div = p[:4 * ps + 4] + prompt(3)   # leaves the tail after 4 rows
+    rc = _serve_one(b, div, n)
+    before = _reusable(b)
+    dup = b.import_prefix_kv(a.export_prefix_kv(p))
+    a.release_export_pins(r)
+    cases["round_trip"] = {
+        "covered": covered, "pages": int(payload["k"].shape[1]),
+        "pages_equal": equal_pages, "cached": rb.cached_prefix_tokens,
+        "tokens_equal_cold": rb.generated == cold(p),
+        "divergent_cached": rc.cached_prefix_tokens,
+        "divergent_equal_cold": rc.generated == cold(div),
+        "cow_forks": b.metrics["cow_forks"],
+        "duplicate_covered": dup, "duplicate_leaked_pages":
+            before - _reusable(b),
+        "import_failures": b.metrics["kv_import_failures"],
+        "source_pins_left": len(_held(a))}
+    c = cases["round_trip"]
+    if not (c["covered"] == c["duplicate_covered"] == len(p) - 1
+            and c["pages_equal"] and c["cached"] == len(p) - 1
+            and c["tokens_equal_cold"] and c["divergent_equal_cold"]
+            and c["divergent_cached"] == 4 * ps + 4 and c["cow_forks"] >= 1
+            and c["duplicate_leaked_pages"] == 0
+            and c["import_failures"] == 0 and c["source_pins_left"] == 0):
+        raise AssertionError(f"migrate_parity round trip: {c}")
+
+    # 2. the live stream, one page a chunk, while the source prefills
+    a = engine(prefill_chunk_size=ps)
+    r = Request("src", list(p), max_new_tokens=1, prefill_only=True,
+                pin_for_export=True)
+    a.add_request(r)
+    src = KVMigrationSource(a, r, chunk_pages=1)
+    stepper = threading.Thread(target=_drain, args=(a, [r]))
+    stepper.start()
+    b = engine()
+    stats = receive_kv_stream(b, src.address, timeout_s=60)
+    stepper.join(timeout=60)
+    src.close()
+    _check_stream("migrate_parity live", stats, b, len(p))
+    rb = _serve_one(b, p, n)
+    cases["live"] = {**stats, "chunks": src.stats["chunks"],
+                     "cached": rb.cached_prefix_tokens,
+                     "tokens_equal_cold": rb.generated == cold(p),
+                     "source_pins_left": len(_held(a))}
+    if not (rb.generated == cold(p) and rb.cached_prefix_tokens == len(p) - 1
+            and not _held(a) and src.stats["chunks"] == 4):
+        raise AssertionError(f"migrate_parity live: {cases['live']}")
+
+    # 3. source death after 2 chunks, live and static
+    a, stats, c_eng, mid = _death_live(engine, p, ps)
+    rc = _serve_one(c_eng, p, n)
+    cases["death_live"] = {
+        **stats, "died_mid_prefill": mid, "cached": rc.cached_prefix_tokens,
+        "tokens_equal_cold": rc.generated == cold(p),
+        "source_pins_left": len(_held(a))}
+    a = engine()
+    a.generate(p, 1)
+    src = KVMigrationSource.for_cached_prefix(a, p, chunk_pages=1,
+                                              _die_after_chunks=2)
+    c_eng = engine()
+    stats = receive_kv_stream(c_eng, src.address, timeout_s=30)
+    src.join(timeout=30)
+    rc = _serve_one(c_eng, p, n)
+    cases["death_static"] = {
+        **stats, "cached": rc.cached_prefix_tokens,
+        "tokens_equal_cold": rc.generated == cold(p),
+        "source_pins_left": len(_held(a))}
+    for name in ("death_live", "death_static"):
+        c = cases[name]
+        if not (not c["complete"] and 0 < c["cached_tokens"] < len(p) - 1
+                and c["cached"] == c["cached_tokens"]
+                and c["tokens_equal_cold"] and c["source_pins_left"] == 0
+                and c.get("died_mid_prefill", True)):
+            raise AssertionError(f"migrate_parity {name}: {c}")
+
+    # 4. the host tier: a pool of 4 pages, 8 host pages
+    h = engine(num_pages=4, host_kv_cache_pages=8)
+    x = prompt(2 * ps + 1)
+    h.generate(x, 1)
+    chain = h._chain_hashes(x)[1][:2]
+    kept = h.executor.export_pages(h.allocator.match_prefix(chain))
+    h.generate(prompt(2 * ps + 1), 1)   # evicts x's pages
+    rx = _serve_one(h, x, n)
+    back = h.executor.export_pages(h.allocator.match_prefix(chain))
+    cases["host_tier"] = {
+        "spilled": h.metrics["host_kv_spilled_pages"],
+        "restored": h.metrics["host_kv_restored_pages"],
+        "cached": rx.cached_prefix_tokens,
+        "restored_equal_spilled": all(np.array_equal(kept[k], back[k])
+                                      for k in ("k", "v")),
+        "tokens_equal_cold": rx.generated == cold(x)}
+    c = cases["host_tier"]
+    if not (c["spilled"] > 0 and c["restored"] > 0
+            and c["cached"] == 2 * ps and c["restored_equal_spilled"]
+            and c["tokens_equal_cold"]):
+        raise AssertionError(f"migrate_parity host tier: {c}")
+
+    # 5. an import under pool pressure falls back cold, once
+    tiny = engine(num_pages=2)
+    got = tiny.import_prefix_kv(payload)
+    short = p[:ps]
+    rs = _serve_one(tiny, short, n)
+    cases["pressure"] = {
+        "covered": got, "import_failures": tiny.metrics["kv_import_failures"],
+        "cached": rs.cached_prefix_tokens,
+        "tokens_equal_cold": rs.generated == cold(short)}
+    c = cases["pressure"]
+    if not (c["covered"] == 0 and c["import_failures"] == 1
+            and c["cached"] == 0 and c["tokens_equal_cold"]):
+        raise AssertionError(f"migrate_parity pressure: {c}")
+
+    torch.cuda.synchronize()
+    launches = paged_launches()
+    expected = _sum_expected(paged, cfg)
+    emit("migrate_parity", dtype="float32", layers=2, page=ps,
+         new_tokens=n, prompt_tokens=len(p), cases=cases,
+         kernel_launches=launches, expected_launches=expected)
+    if launches != expected:
+        raise AssertionError(f"migrate_parity launches {launches} != "
+                             f"{expected}")
+    del paged, cold_eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_migrate(seed: int = 0) -> dict:
+    """KV migration at llama3-1b, full width, bf16, in the migration
+    bench's geometry: engine A prefills a 2,048-token prompt
+    (prefill_only) and streams it to engine B over the loop wire, two
+    rounds, best kept; B's pages must equal A's, and B's 32 greedy tokens
+    must equal A's from the same pages with the same suffix shape. Then
+    the host tier at the same geometry. Returns the paged kernels' launch
+    counts over every engine of the phase."""
+    cfg = PRESETS["llama3-1b"]
+    params = init_params(cfg, torch.Generator(DEVICE).manual_seed(seed))
+    ps = PAGE
+    geo = dict(max_slots=2, max_len=MIG_MAX_LEN, page_size=ps,
+               prefill_chunk_size=CHUNK, decode_steps_per_dispatch=8)
+    engines = []
+
+    def engine(**kw):
+        eng = InferenceEngine(cfg, params, **{**geo, **kw})
+        engines.append(eng)
+        return eng
+
+    prompt = [(7 + 13 * i) % 200 + 1 for i in range(MIG_PROMPT)]
+    reset_paged_launches()
+    a = engine()
+    t0 = time.perf_counter()
+    r = _prefill_only(a, prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pages = list(r.export_pinned)
+    # what a stream carries: the full pages a hit can map, then the last
+    # prompt page as a tail (the request's table also holds a page for
+    # its one new token)
+    full = (MIG_PROMPT - 1) // ps
+    streamed = pages[:full + 1]
+    rounds = []
+    for i in range(2):
+        if i:  # re-pin the retired request's pages for the next stream
+            with a._lock:
+                for pid in pages:
+                    a.allocator.share(pid)
+                r.export_pinned, r.pin_for_export = list(pages), True
+        src = KVMigrationSource(a, r)
+        b = engine()
+        stats = receive_kv_stream(b, src.address, timeout_s=120.0)
+        src.close()
+        _check_stream(f"migrate round {i}", stats, b, MIG_PROMPT)
+        rounds.append({**stats, "mb_s": stats["bytes"] / 1e6
+                       / stats["seconds"], "chunks": src.stats["chunks"]})
+    if _held(a):
+        raise AssertionError(f"migrate: source pins left {_held(a)}")
+    plan_b = b.pin_prefix_for_export(prompt)
+    pages_equal = _pages_equal(a, streamed, b, plan_b["page_ids"])
+    b.release_export_pages(plan_b["page_ids"])
+    # A's reference layout is B's: the payload the stream carried (31 full
+    # pages and the last page as a partial tail), imported into A itself,
+    # so A serves from its own pages with the suffix B prefills.
+    self_payload = {"page_size": ps, "model": "", "tokens": prompt,
+                    "full_pages": full, "partial_len": MIG_PROMPT - full * ps,
+                    **a.executor.export_pages(streamed)}
+    a_covered = a.import_prefix_kv(self_payload)
+    ra = _serve_one(a, prompt, MIG_NEW)
+    rb = _serve_one(b, prompt, MIG_NEW)
+    c = engine()
+    rc = _serve_one(c, prompt, MIG_NEW)
+    ttft = {name: (q.first_token_at - q.arrived_at) * 1e3
+            for name, q in (("a", ra), ("b", rb), ("cold", rc))}
+    migrate = {
+        "pages_streamed": rounds[-1]["pages"], "rounds": rounds,
+        "kv_migration_mb_s": max(x["mb_s"] for x in rounds),
+        "source_prefill_s": prefill_s, "pages_equal": pages_equal,
+        "a_self_import_covered": a_covered,
+        "cached": {"a": ra.cached_prefix_tokens,
+                   "b": rb.cached_prefix_tokens},
+        "tokens_equal_a": rb.generated == ra.generated,
+        # B's admissions: one request, every cacheable page a hit
+        "b_prefix_cache_hit_rate": b.prefix_cache_hit_rate,
+        "b_prefill_suffix_frac": b.prefill_suffix_frac,
+        "ttft_migrated_ms": ttft["b"], "ttft_a_ms": ttft["a"],
+        "ttft_cold_ms": ttft["cold"],
+        "tokens_equal_cold": int(sum(x == y for x, y in
+                                     zip(rb.generated, rc.generated)))}
+    if not (pages_equal and a_covered == MIG_PROMPT
+            and ra.cached_prefix_tokens == rb.cached_prefix_tokens
+            == MIG_PROMPT - 1 and rb.generated == ra.generated
+            and len(rb.generated) == MIG_NEW):
+        raise AssertionError(f"migrate: {migrate}")
+
+    # Where a chunk's time goes: each part of one 8-page chunk alone (A's
+    # gather and synchronous copy to the host, the pickle, the wire, the
+    # unpickle, the copy to the card and scatter into free pages of C).
+    chunk = streamed[:KV_MIGRATION_CHUNK_PAGES]
+    with c._lock:
+        dst = c.allocator.alloc(len(chunk))
+    if dst is None:
+        raise AssertionError("migrate: no free pages for the chunk parts")
+    best = max(rounds, key=lambda x: x["mb_s"])
+    migrate["chunk_parts_ms"] = {**_wire_parts(
+        [("export", lambda _: a.executor.export_pages(chunk)),
+         ("pickle", lambda d: pickle.dumps(
+             {"kind": "pages", "tokens": prompt[:len(chunk) * ps], **d},
+             protocol=pickle.HIGHEST_PROTOCOL))],
+        [("unpickle", pickle.loads),
+         ("import", lambda msg: c.executor.import_pages(dst, msg))]),
+        "stream_ms_per_chunk": best["seconds"] * 1e3 / best["chunks"]}
+    with c._lock:
+        for pid in dst:
+            c.allocator.release(pid)
+
+    # The host tier: a pool of one sequence; a second prompt evicts the
+    # first's cached pages to host RAM, and the first's next admission
+    # restores them (31 matchable: (len - 1) // page caps a hit).
+    h = engine(num_pages=-(-(MIG_PROMPT + MIG_NEW) // ps) + 1,
+               host_kv_cache_pages=64)
+    other = [(11 + 17 * i) % 200 + 1 for i in range(MIG_PROMPT)]
+    _serve_one(h, prompt, MIG_NEW)
+    hit = _serve_one(h, prompt, MIG_NEW)
+    chain = h._chain_hashes(prompt)[1][:full]
+    kept = h.executor.export_pages(h.allocator.match_prefix(chain))
+    m = h.metrics
+
+    def admit_ms(req) -> float:
+        h.add_request(req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h._admit()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    q = Request("evict", list(other), max_new_tokens=1)
+    spilled0 = m["host_kv_spilled_pages"]
+    evict_ms = admit_ms(q)
+    spilled = m["host_kv_spilled_pages"] - spilled0
+    _drain(h, [q])
+    back = Request("back", list(prompt), max_new_tokens=MIG_NEW)
+    spilled1 = m["host_kv_spilled_pages"]
+    restore_ms = admit_ms(back)
+    _drain(h, [back])
+    restored = h.executor.export_pages(h.allocator.match_prefix(chain))
+    host_tier = {
+        "host_kv_spilled_pages": m["host_kv_spilled_pages"],
+        "host_kv_restored_pages": m["host_kv_restored_pages"],
+        "spilled_by_eviction": spilled, "eviction_admission_ms": evict_ms,
+        "spill_ms_per_page": evict_ms / spilled if spilled else None,
+        "restore_admission_ms": restore_ms,
+        "spilled_during_restore": m["host_kv_spilled_pages"] - spilled1,
+        "cached_hit": hit.cached_prefix_tokens,
+        "cached_restored": back.cached_prefix_tokens,
+        "restored_equal_spilled": all(np.array_equal(kept[k], restored[k])
+                                      for k in ("k", "v")),
+        "tokens_equal_hit": back.generated == hit.generated,
+        "ttft_hit_ms": (hit.first_token_at - hit.arrived_at) * 1e3,
+        "ttft_restored_ms": (back.first_token_at - back.arrived_at) * 1e3}
+    # every chain page the eviction spilled comes back: the restored
+    # request maps the whole chain, as the hit before the eviction did
+    if not (spilled > 0 and m["host_kv_restored_pages"] > 0
+            and back.cached_prefix_tokens == hit.cached_prefix_tokens
+            == len(chain) * ps and host_tier["restored_equal_spilled"]
+            and host_tier["tokens_equal_hit"]):
+        raise AssertionError(f"migrate host tier: {host_tier}")
+    torch.cuda.synchronize()
+    launches = paged_launches()
+    expected = _sum_expected(engines, cfg)
+    emit("migrate", preset="llama3-1b", dtype="bfloat16", page=ps,
+         chunk=CHUNK, max_len=MIG_MAX_LEN, prompt_tokens=MIG_PROMPT,
+         new_tokens=MIG_NEW, **migrate, host_tier=host_tier,
+         kernel_launches=launches, expected_launches=expected)
+    if launches != expected:
+        raise AssertionError(f"migrate launches {launches} != {expected}")
+    del engines, a, b, c, h, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_weights(seed: int = 0) -> dict:
+    """Weight residency at llama3-1b bf16 on an engine built from a seed:
+    demote (the allocation must fall by the weights' bytes), promote
+    (ms, GB/s), the fingerprint and the greedy tokens unchanged, demotion
+    refused while busy, the first request promoting, a broadcast to two
+    loopback readers, and install_weights into a demoted engine. Returns
+    the paged kernels' launch counts."""
+    cfg = PRESETS["llama3-1b"]
+    rng = np.random.default_rng(seed)
+    reset_paged_launches()
+    # no prefix cache: every request prefills cold, so the same weights
+    # give the same bf16 tokens (a cache hit changes the suffix's shape)
+    eng = InferenceEngine("llama3-1b", max_slots=2, max_len=256,
+                          page_size=PAGE, prefill_chunk_size=CHUNK,
+                          decode_steps_per_dispatch=8, seed=seed,
+                          enable_prefix_cache=False)
+    prompt = rng.integers(0, cfg.vocab_size, 100).tolist()
+    new = 16
+    before = eng.generate(prompt, new)
+    nbytes = tree_bytes(eng.executor.params)
+    t0 = time.perf_counter()
+    fingerprint = params_fingerprint(eng.executor.params)
+    fingerprint_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    demoted = eng.demote_weights_to_host()
+    mem1 = torch.cuda.memory_allocated()
+    promoted = eng.promote_weights_from_host()
+    out = {"tree_bytes": nbytes, "demote": demoted,
+           "freed_bytes": mem0 - mem1,
+           "freed_frac": (mem0 - mem1) / nbytes,
+           "promote_ms": promoted["seconds"] * 1e3,
+           "promote_gb_s": nbytes / promoted["seconds"] / 1e9,
+           "weight_promote_ms": eng.metrics["weight_promote_ms"],
+           "fingerprint_s": fingerprint_s,
+           "fingerprint_equal": params_fingerprint(eng.executor.params)
+           == fingerprint,
+           "tokens_equal_after_promote": eng.generate(prompt, new) == before}
+    busy = Request("busy", list(prompt), max_new_tokens=4)
+    eng.add_request(busy)
+    out["demote_while_busy"] = eng.demote_weights_to_host()
+    _drain(eng, [busy])
+    eng.demote_weights_to_host()
+    out["tokens_equal_auto_promote"] = eng.generate(prompt, new) == before
+    out["auto_promoted"] = eng.weights_resident() and \
+        eng.metrics["weights_promoted"] == 2
+
+    src = WeightBroadcastSource(eng.executor.params, model="llama3-1b",
+                                n_readers=2)
+    got = [None, None]
+
+    def read(i):
+        got[i] = receive_weight_stream(src.address, timeout_s=120.0)
+
+    t0 = time.perf_counter()
+    readers = [threading.Thread(target=read, args=(i,)) for i in range(2)]
+    for t in readers:
+        t.start()
+    for t in readers:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    src.join(timeout=30)
+    src.close()
+    out["broadcast"] = {
+        "wire_bytes": src.stats["bytes"], "chunks": src.stats["chunks"],
+        "wall_s": wall, "readers": [
+            {k: g[k] for k in ("status", "complete", "bytes", "seconds")}
+            | {"mb_s": g["bytes"] / 1e6 / g["seconds"],
+               "fingerprint_equal": g["fingerprint"] == fingerprint}
+            for g in got],
+        "aggregate_mb_s": sum(g["bytes"] for g in got) / 1e6 / wall}
+    # Where a message's time goes: each part of one 4 MiB chunk of the
+    # embedding alone (the source's slice copy, the pickle, the wire, the
+    # unpickle, the receiver's append), against the broadcast's wall time
+    # a message.
+    raw = got[0]["params"]["embed"].reshape(-1).view(torch.uint8)
+    out["broadcast"]["message_parts_ms"] = {**_wire_parts(
+        [("slice", lambda _: raw[:DEFAULT_CHUNK_BYTES].numpy().tobytes()),
+         ("pickle", lambda data: pickle.dumps(
+             {"kind": "chunk", "leaf": 0, "dtype": "bfloat16",
+              "shape": tuple(got[0]["params"]["embed"].shape),
+              "offset": 0, "data": data},
+             protocol=pickle.HIGHEST_PROTOCOL))],
+        [("unpickle", pickle.loads),
+         ("append", lambda msg: bytearray().__iadd__(msg["data"]))]),
+        "broadcast_ms_per_message": wall * 1e3 / src.stats["chunks"]}
+    eng.demote_weights_to_host()
+    installed = eng.install_weights(got[0]["params"])
+    del got
+    out["install"] = installed
+    out["tokens_equal_after_install"] = eng.generate(prompt, new) == before
+    torch.cuda.synchronize()
+    launches = paged_launches()
+    expected = _expected_paged(eng, cfg)
+    emit("weights", preset="llama3-1b", dtype="bfloat16", new_tokens=new,
+         **out, metrics={k: eng.metrics[k] for k in (
+             "weights_demoted", "weights_promoted", "weight_promote_ms")},
+         kernel_launches=launches, expected_launches=expected)
+    if not (demoted["ok"] and out["freed_frac"] >= WEIGHTS_FREED_FRAC
+            and promoted["ok"] and out["fingerprint_equal"]
+            and out["tokens_equal_after_promote"]
+            and out["demote_while_busy"] == {"ok": False, "reason": "busy"}
+            and out["tokens_equal_auto_promote"] and out["auto_promoted"]
+            and all(g["complete"] and g["fingerprint_equal"]
+                    for g in out["broadcast"]["readers"])
+            and installed["ok"] and out["tokens_equal_after_install"]):
+        raise AssertionError(f"weights: {out}")
+    if launches != expected:
+        raise AssertionError(f"weights launches {launches} != {expected}")
+    del eng, src
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _build_all() -> None:
     """One nvcc per CUDA source, all started together."""
     # one library per source: flash_bwd.cu holds the simt dQ and dK/dV
@@ -1874,6 +2499,9 @@ def main() -> int:
     verify_launches = phase_speculate()
     lora_parity_launches = phase_lora_parity()
     lora_launches = phase_lora_serve()
+    mig_parity_launches = phase_migrate_parity()
+    mig_launches = phase_migrate()
+    weights_launches = phase_weights()
     kernels = []
     for name, pk in PAGED_KERNELS.items():
         kernels.append({
@@ -1892,6 +2520,11 @@ def main() -> int:
             # parity batch (`lora_parity`)
             "launches_lora_serve": lora_launches[name],
             "launches_f32_lora_parity": lora_parity_launches[name],
+            # the bf16 migration and weights phases, and the f32
+            # migration parity cases (`migrate_parity`)
+            "launches_migrate": mig_launches[name],
+            "launches_weights": weights_launches[name],
+            "launches_f32_migrate_parity": mig_parity_launches[name],
             "max_abs_err": paged_err[name],
             "max_abs_err_verify_cases": paged_err_verify[name],
             **times["uniform"][name],

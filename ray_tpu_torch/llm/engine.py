@@ -21,27 +21,46 @@ different adapters decode together. A prompt with an adapter prefills
 on its own, one chunk a step; prefix pages are cached per adapter; and
 speculation stays off, as in the JAX package.
 
-Not ported yet (later slices): tenant quotas and the fair queue, KV
-migration and disaggregated prefill, the host-RAM KV tier, weight
-residency, request deadlines, and the flight recorder and tracing spans
-(among them the speculation round's event, the ``llm.speculate`` and the
+Pages and weights move between tiers:
+
+  * **KV migration** (disaggregated prefill): a ``prefill_only`` request
+    computes its prompt's KV and retires without sampling
+    (``finish_reason "prefilled"``); ``pin_for_export`` keeps its pages
+    until the exporter releases them. ``export_prefix_kv`` /
+    ``import_prefix_kv`` move a cached prefix in one payload, and
+    ``migration.py`` streams one over the loop wire; imported pages are
+    registered under the chain hashes the source used, so the prompt's
+    next admission maps them as prefix hits.
+  * **Host-RAM KV tier** (``host_kv_cache_pages``): cached full-block
+    pages evicted under pressure spill to host RAM, keyed by chain hash,
+    and a later prefix match restores them.
+  * **Weight residency**: ``demote_weights_to_host`` moves the weights to
+    host RAM while the engine stands by, and ``promote_weights_from_host``
+    (or the next request) brings them back; ``install_weights`` adopts a
+    tree received over the broadcast wire (``weights.py``).
+
+Not ported yet (later slices): tenant quotas and the fair queue, request
+deadlines, and the flight recorder and tracing spans (among them the
+speculation round's event, the ``llm.speculate``, ``llm.kv_migrate`` and
 ``llm.adapter_load`` spans).
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import itertools
 import logging
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
 
 from ..models.llama import PRESETS, LlamaConfig
+from . import weights as wlib
 from .executor import LocalEngineExecutor
 from .lora import LoRAManager
 from .speculative import SpeculationConfig
@@ -83,6 +102,14 @@ class Request:
     shared_pages: int = 0
     partial_len: int = 0
     cow_page: int | None = None
+    # Disaggregated prefill: a prefill-only request computes its prompt's
+    # KV and retires without sampling (finish_reason "prefilled").
+    # ``pin_for_export`` keeps the retired pages refcounted in
+    # ``export_pinned`` until the exporter releases them
+    # (``InferenceEngine.release_export_pins``).
+    prefill_only: bool = False
+    pin_for_export: bool = False
+    export_pinned: list[int] = field(default_factory=list)
     # Speculation: drafted tokens verified for this request, drafts
     # accepted, and verify rounds that rolled a draft back.
     spec_drafted: int = 0
@@ -123,6 +150,10 @@ class PageAllocator:
         self._parent: dict[bytes, bytes] = {}
         self._partials: dict[bytes, dict[tuple, int]] = {}
         self._partial_pages: dict[int, tuple[bytes, tuple]] = {}
+        # Host-RAM tier hook: ``on_evict(page_id, chain_hash)`` for every
+        # cached full-block page about to be reused (the victim and its
+        # unreachable cached descendants), while it still holds its K/V.
+        self.on_evict = None
 
     def available(self) -> int:
         return len(self.free) + sum(
@@ -140,6 +171,13 @@ class PageAllocator:
             self.refcount[pid] = 1
             out.append(pid)
         return out
+
+    def fork(self, page_id: int) -> int | None:
+        """COW fork: one fresh page to receive a copy of shared
+        ``page_id`` (the caller copies the rows and swaps its own table
+        entry); the original keeps its refcount and cache entries."""
+        got = self.alloc(1)
+        return got[0] if got is not None else None
 
     def _unlink(self, page_id: int) -> None:
         """Drop every cache entry for ``page_id``; the page is not freed."""
@@ -178,6 +216,8 @@ class PageAllocator:
             if best is None or key < best[0]:
                 best = (key, p, None)
         _, victim, victim_hash = best
+        if self.on_evict is not None and victim_hash is not None:
+            self.on_evict(victim, victim_hash)  # before unlink and reuse
         descendants = []
         if victim_hash is not None and victim_hash in self._children:
             stack = [victim_hash]
@@ -191,6 +231,8 @@ class PageAllocator:
                     p = self.prefix_map.pop(h, None)
                     self._parent.pop(h, None)
                     if p is not None:
+                        if self.on_evict is not None:
+                            self.on_evict(p, h)
                         self.page_hash.pop(p, None)
                         descendants.append(p)
         self._unlink(victim)
@@ -240,6 +282,9 @@ class PageAllocator:
         self._partial_pages[page_id] = (parent_hash, tokens)
         self.last_used[page_id] = time.monotonic()
 
+    def lookup_prefix(self, chain_hash: bytes) -> int | None:
+        return self.prefix_map.get(chain_hash)
+
     def match_prefix(self, chain_hashes: list[bytes]) -> list[int]:
         """Longest cached chain: one page per matched full block."""
         hits: list[int] = []
@@ -276,7 +321,8 @@ class InferenceEngine:
     ``device=None`` means the CUDA card and raises where there is none;
     pass ``device="cpu"`` to run on the CPU. ``speculation_config`` (None,
     a dict or a ``SpeculationConfig``) turns on speculative decoding;
-    ``lora_config`` (a ``LoRAServingConfig``) multi-LoRA serving.
+    ``lora_config`` (a ``LoRAServingConfig``) multi-LoRA serving;
+    ``host_kv_cache_pages`` > 0 the host-RAM KV tier of that many pages.
     """
 
     def __init__(
@@ -300,6 +346,7 @@ class InferenceEngine:
         max_queued_requests: int = 0,
         speculation_config=None,
         lora_config=None,
+        host_kv_cache_pages: int = 0,
         device=None,
     ):
         self.config = PRESETS[config] if isinstance(config, str) else config
@@ -373,6 +420,16 @@ class InferenceEngine:
             (1, self.max_pages_per_seq))
         self._cow_enabled = (enable_prefix_cache and
                              getattr(executor, "supports_prefix_cow", False))
+        # Host-RAM KV tier: refcount-0 trie pages about to be evicted
+        # spill to a bounded LRU host cache keyed by chain hash, and a
+        # later prefix match restores them instead of recomputing.
+        self.host_kv_cache_pages = max(0, host_kv_cache_pages)
+        self._host_kv: OrderedDict[bytes, dict] = OrderedDict()
+        # Weight residency: the host copy of the weights (kept after a
+        # promotion), and the lock that orders demotion, promotion and a
+        # request's re-promotion.
+        self._host_params = None
+        self._residency_lock = threading.Lock()
         self.metrics = {"prefix_hit_pages": 0, "prefix_lookup_pages": 0,
                         "prefix_cached_tokens": 0, "prompt_tokens": 0,
                         "cow_forks": 0, "prefill_chunks": 0,
@@ -399,7 +456,31 @@ class InferenceEngine:
                         "spec_emitted_tokens": 0,
                         "spec_dispatches": 0,
                         "spec_slot_rounds": 0,
-                        "spec_rollbacks": 0}
+                        "spec_rollbacks": 0,
+                        # KV migration: pages shipped out of and into this
+                        # pool, migrations each way, import bytes, and
+                        # reservation failures that fell back to a cold
+                        # prefill.
+                        "kv_pages_exported": 0, "kv_pages_imported": 0,
+                        "kv_migrations_out": 0, "kv_migrations_in": 0,
+                        "kv_import_failures": 0, "kv_import_bytes": 0,
+                        # Host-RAM KV tier: evicted trie pages spilled to
+                        # host RAM, and pages restored from it.
+                        "host_kv_spilled_pages": 0,
+                        "host_kv_restored_pages": 0,
+                        # Weight residency: demotions to host RAM,
+                        # promotions back, and the last promotion's time.
+                        "weights_demoted": 0, "weights_promoted": 0,
+                        "weight_promote_ms": 0.0}
+        if self.host_kv_cache_pages and enable_prefix_cache and \
+                getattr(executor, "supports_kv_migration", False):
+            # The hook holds what the spill needs, not the engine: a bound
+            # method on the engine's own allocator would be a reference
+            # cycle that keeps a dropped engine's pool on the card until
+            # the cycle collector runs.
+            self.allocator.on_evict = functools.partial(
+                self._spill_page_to_host, executor, self._host_kv,
+                self.host_kv_cache_pages, self.metrics)
 
     @staticmethod
     def total_pages(max_slots: int, max_len: int, page_size: int,
@@ -417,6 +498,9 @@ class InferenceEngine:
                              f"max_len {self.max_len}")
         if not request.prompt:
             raise ValueError("empty prompt")
+        # The first request onto a demoted engine promotes the weights
+        # before it queues: its TTFT carries the copy.
+        self._ensure_weights_resident()
         with self._lock:
             if self.max_queued_requests and \
                     len(self._waiting) >= self.max_queued_requests:
@@ -480,6 +564,12 @@ class InferenceEngine:
             self.lora_manager.release(r.lora_slot)
             r.lora_slot = 0
         if r.block_table:
+            if r.pin_for_export and not r.export_pinned:
+                # Migration source: one more ref per page past the retire,
+                # until the exporter releases them (release_export_pins).
+                for pid in r.block_table:
+                    self.allocator.share(pid)
+                r.export_pinned = list(r.block_table)
             if self.enable_prefix_cache:
                 # The chain covers prompt + generated tokens whose K/V was
                 # written (the last generated token was emitted, never fed
@@ -522,6 +612,22 @@ class InferenceEngine:
                 and getattr(self.executor, "supports_speculation", False))
 
     @property
+    def prefix_cache_hit_rate(self) -> float:
+        """Cacheable prompt pages served from the prefix cache: hit pages
+        over looked-up pages since the engine started."""
+        lookups = self.metrics["prefix_lookup_pages"]
+        return self.metrics["prefix_hit_pages"] / lookups if lookups else 0.0
+
+    @property
+    def prefill_suffix_frac(self) -> float:
+        """Admitted prompt tokens actually prefilled (the cold suffix);
+        1.0 = no prefix reuse."""
+        total = self.metrics["prompt_tokens"]
+        if not total:
+            return 1.0
+        return 1.0 - self.metrics["prefix_cached_tokens"] / total
+
+    @property
     def spec_accept_rate(self) -> float:
         """Fraction of drafted tokens the target model accepted (0 before
         any draft)."""
@@ -552,6 +658,10 @@ class InferenceEngine:
         decoders and pending prefill runs one fused call; otherwise one
         prefill chunk runs ahead of decode. Returns emission events
         ``{"request_id", "token", "done", "finish_reason"}``."""
+        if self.has_work:
+            # A demotion that raced admission: no dispatch ever runs
+            # without weights.
+            self._ensure_weights_resident()
         self._admit()
         mix = self.metrics["engine_step_mix"]
         with self._lock:
@@ -690,6 +800,8 @@ class InferenceEngine:
         hits = self.allocator.match_prefix(hashes)
         for pid in hits:
             self.allocator.share(pid)
+        if self._host_kv and len(hits) < len(hashes):
+            hits = self._restore_host_hits(root, hashes, hits)
         partial = None
         if self._cow_enabled:
             parent = hashes[len(hits) - 1] if hits else root
@@ -723,6 +835,57 @@ class InferenceEngine:
                                 np.int32).tobytes())
             hashes.append(h.digest())
         return root, hashes
+
+    @staticmethod
+    def _spill_page_to_host(executor, host_kv: OrderedDict, capacity: int,
+                            metrics: dict, page_id: int,
+                            chain_hash: bytes) -> None:
+        """The host tier's eviction hook (under the engine lock, inside
+        ``PageAllocator.alloc``): pull the doomed page's K/V to host RAM
+        keyed by its chain hash, bounded LRU. One device sync a page."""
+        try:
+            data = executor.export_pages([page_id])
+        except Exception:
+            # Best effort: the eviction goes on without the spill.
+            logger.warning("host KV spill of page %d failed", page_id,
+                           exc_info=True)
+            return
+        host_kv[chain_hash] = data
+        host_kv.move_to_end(chain_hash)
+        while len(host_kv) > capacity:
+            host_kv.popitem(last=False)
+        metrics["host_kv_spilled_pages"] += 1
+
+    def _restore_host_hits(self, root: bytes, hashes: list[bytes],
+                           hits: list[int]) -> list[int]:
+        """Extend a trie match with pages restored from the host tier:
+        each is scattered back into a fresh page and registered under its
+        chain hash, so the prefill skips it like a device-resident hit.
+        Earlier hits are pinned and each restored page keeps its alloc
+        ref (the pin), so an eviction a restore triggers never recycles
+        a page of this match."""
+        while len(hits) < len(hashes):
+            h = hashes[len(hits)]
+            data = self._host_kv.get(h)
+            if data is None:
+                break
+            got = self.allocator.alloc(1)
+            if got is None:
+                break
+            (pid,) = got
+            del self._host_kv[h]  # one copy: it lives on the card again
+            try:
+                self.executor.import_pages([pid], data)
+            except (RuntimeError, ValueError):
+                logger.warning("host KV restore into page %d failed", pid,
+                               exc_info=True)
+                self.allocator.release(pid)
+                break
+            parent = hashes[len(hits) - 1] if hits else root
+            self.allocator.register_prefix(pid, h, parent)
+            hits.append(pid)
+            self.metrics["host_kv_restored_pages"] += 1
+        return hits
 
     def _chunk_bucket(self, n: int) -> int:
         b = self.page_size
@@ -765,7 +928,9 @@ class InferenceEngine:
         take = min(remaining, chunk)
         tokens[:take] = r.prompt[r.prefill_pos:r.prefill_pos + take]
         final = r.prefill_pos + take >= len(r.prompt)
-        handle = next(self._handle_counter) if final else None
+        # A prefill-only prompt samples nothing: no first-token handle.
+        handle = (next(self._handle_counter)
+                  if final and not r.prefill_only else None)
         self.executor.prefill(bt, tokens, r.prefill_pos, handle, take,
                               lora_slot=r.lora_slot)
         self.metrics["prefill_chunks"] += 1
@@ -774,13 +939,25 @@ class InferenceEngine:
             return []
         with self._lock:
             if r.done:  # cancelled mid-prefill
-                self.executor.drop_handle(handle)
+                if handle is not None:
+                    self.executor.drop_handle(handle)
                 if self._prefilling and self._prefilling[0] is r:
                     self._prefilling.popleft()
                 return []
             self._prefilling.popleft()
+            if r.prefill_only:
+                return [self._retire_prefilled_locked(r)]
         self._pending_first.append((r, handle))
         return []
+
+    def _retire_prefilled_locked(self, r: Request) -> dict:
+        """Disaggregated prefill: the prompt's KV is in the pool and, once
+        retired, in the prefix trie; a decode engine imports the pages and
+        samples."""
+        r.done, r.finish_reason = True, "prefilled"
+        self._retire_locked(r)
+        return {"request_id": r.request_id, "token": -1, "done": True,
+                "finish_reason": "prefilled"}
 
     def _flush_first_samples(self) -> list[dict]:
         """One call and one sync sample the first token of every pending
@@ -944,7 +1121,8 @@ class InferenceEngine:
             plans.append({
                 "request": r, "block_table": bt, "tokens": tokens,
                 "start_pos": r.prefill_pos,
-                "handle": next(self._handle_counter) if final else None,
+                "handle": (next(self._handle_counter)
+                           if final and not r.prefill_only else None),
                 "take": take, "final": final,
             })
             budget -= chunk
@@ -970,6 +1148,7 @@ class InferenceEngine:
             eos_ids, remaining, K, lora_idx=self._lora_idx)  # [K, slots]
         self.metrics["decode_steps"] += K
         self.metrics["decode_dispatches"] += 1
+        prefilled: list[dict] = []
         for p in plans:
             r = p["request"]
             self.metrics["prefill_chunks"] += 1
@@ -982,10 +1161,14 @@ class InferenceEngine:
                 except ValueError:
                     pass  # cancel() already rebuilt the queue without it
                 if r.done:  # cancelled mid-dispatch
-                    self.executor.drop_handle(p["handle"])
+                    if p["handle"] is not None:
+                        self.executor.drop_handle(p["handle"])
+                    continue
+                if r.prefill_only:
+                    prefilled.append(self._retire_prefilled_locked(r))
                     continue
             self._pending_first.append((r, p["handle"]))
-        return self._emit_decode_events(active, tokens, K)
+        return self._emit_decode_events(active, tokens, K) + prefilled
 
     def _emit(self, r: Request, token: int) -> dict:
         r.generated.append(token)
@@ -1014,6 +1197,255 @@ class InferenceEngine:
                     "pinned": pinned, "active_slots": len(self._active),
                     "prefilling": len(self._prefilling),
                     "waiting": len(self._waiting)}
+
+    # ------------------------------------------------------ weight residency
+    @property
+    def supports_weight_residency(self) -> bool:
+        """Host-tier weight demotion: the executor owns a ``params`` tree
+        that it lets the engine swap."""
+        return bool(getattr(self.executor, "supports_weight_residency",
+                            False)) and hasattr(self.executor, "params")
+
+    def weights_resident(self) -> bool:
+        """True while the weights are on the device (normal serving)."""
+        return getattr(self.executor, "params", None) is not None
+
+    def demote_weights_to_host(self) -> dict:
+        """Standby demotion: copy the weights to host RAM and drop the
+        device reference, so their memory frees while the engine (pool,
+        trie, adapters' files) stays warm. Idle adapters unload too.
+        Refused while any request is in flight. The memory frees only if
+        nothing else holds the device tensors (the ``params`` handed to
+        the constructor, say)."""
+        with self._residency_lock:
+            if not self.supports_weight_residency:
+                return {"ok": False, "reason": "unsupported"}
+            if not self.weights_resident():
+                return {"ok": True, "already": True, "bytes": 0,
+                        "seconds": 0.0}
+            if self.has_work:
+                return {"ok": False, "reason": "busy"}
+            t0 = time.monotonic()
+            host = wlib.tree_to_host(self.executor.params)
+            self._host_params = host
+            self.executor.params = None
+            self.metrics["weights_demoted"] += 1
+            adapters = (self.lora_manager.unload_idle()
+                        if self.lora_manager is not None else 0)
+            return {"ok": True, "bytes": wlib.tree_bytes(host),
+                    "adapters_unloaded": adapters,
+                    "seconds": round(time.monotonic() - t0, 6)}
+
+    def promote_weights_from_host(self) -> dict:
+        """Standby promotion: copy the host weights back to the device.
+        The host copy is kept (weights do not change under inference)."""
+        with self._residency_lock:
+            return self._promote_locked()
+
+    def _promote_locked(self) -> dict:
+        if self.weights_resident():
+            return {"ok": True, "already": True, "seconds": 0.0}
+        if self._host_params is None:
+            return {"ok": False, "reason": "no_host_copy"}
+        t0 = time.monotonic()
+        # returns once the copies are done, so the time is the copy's
+        params = wlib.host_to_device(self._host_params, self.executor.device)
+        self.executor.params = params
+        dt = time.monotonic() - t0
+        self.metrics["weights_promoted"] += 1
+        self.metrics["weight_promote_ms"] = round(dt * 1000.0, 3)
+        return {"ok": True, "seconds": round(dt, 6)}
+
+    def install_weights(self, host_tree) -> dict:
+        """Adopt a weight tree delivered over the broadcast wire
+        (``weights.receive_weight_stream``): it becomes the host copy,
+        and a demoted engine promotes it. A resident engine only refreshes
+        its host copy; its dispatches keep the device tree until the next
+        demote/promote cycle."""
+        with self._residency_lock:
+            if not self.supports_weight_residency:
+                return {"ok": False, "reason": "unsupported"}
+            self._host_params = wlib.tree_to_host(host_tree)
+            if self.weights_resident():
+                return {"ok": True, "resident": True, "seconds": 0.0}
+            return self._promote_locked()
+
+    def _ensure_weights_resident(self) -> None:
+        """First-request promotion: a request that lands on a demoted
+        engine pays one host-to-device copy, never a failure."""
+        if self.weights_resident() or self._host_params is None:
+            return
+        with self._residency_lock:
+            self._promote_locked()
+
+    # ---------------------------------------------------------- KV migration
+    @property
+    def supports_kv_migration(self) -> bool:
+        """Page export and import between engines: needs the prefix trie
+        (the registration target) and an executor with the host gather
+        and scatter."""
+        return bool(self.enable_prefix_cache and
+                    getattr(self.executor, "supports_kv_migration", False))
+
+    def pin_prefix_for_export(self, prompt,
+                              model: str | None = None) -> dict | None:
+        """Match ``prompt``'s longest cached chain (full trie blocks and
+        the best partial tail) and pin its pages for export, one ref each,
+        so pool pressure cannot recycle them mid-transfer. Returns the
+        plan ``{"page_ids", "tokens", "full_pages", "partial_len",
+        "model"}`` (release with ``release_export_pages``), or None when
+        nothing is cached or migration is unsupported."""
+        if not self.supports_kv_migration or len(prompt) < 2:
+            return None
+        ps = self.page_size
+        with self._lock:
+            root, chain = self._chain_hashes(prompt, model)
+            hashes = chain[:(len(prompt) - 1) // ps]
+            hits = self.allocator.match_prefix(hashes)
+            partial = None
+            if self._cow_enabled:
+                parent = hashes[len(hits) - 1] if hits else root
+                remainder = prompt[len(hits) * ps:]
+                cap = min(len(remainder) - 1, ps - 1)
+                if cap > 0:
+                    partial = self.allocator.match_partial(
+                        parent, tuple(int(t) for t in remainder), cap)
+            if not hits and partial is None:
+                return None
+            ids = list(hits) + ([partial[0]] if partial is not None else [])
+            for pid in ids:
+                self.allocator.share(pid)  # pinned until released
+        plen = partial[1] if partial is not None else 0
+        covered = len(hits) * ps + plen
+        return {"page_ids": ids,
+                "tokens": [int(t) for t in prompt[:covered]],
+                "full_pages": len(hits), "partial_len": plen,
+                "model": model or ""}
+
+    def release_export_pages(self, page_ids: list[int]) -> None:
+        """Drop the pins ``pin_prefix_for_export`` took; the pages become
+        ordinary evictable cache entries again."""
+        with self._lock:
+            for pid in page_ids:
+                self.allocator.release(pid)
+
+    def export_prefix_kv(self, prompt,
+                         model: str | None = None) -> dict | None:
+        """The cached KV covering ``prompt``'s longest prefix (full trie
+        blocks and the best partial tail) as a host payload that
+        ``import_prefix_kv`` on another engine adopts, in one pull (the
+        chunked alternative is ``KVMigrationSource.for_cached_prefix``).
+        None when nothing is cached or migration is unsupported."""
+        plan = self.pin_prefix_for_export(prompt, model)
+        if plan is None:
+            return None
+        ids = plan["page_ids"]
+        try:
+            data = self.executor.export_pages(ids)
+        finally:
+            self.release_export_pages(ids)
+        self.metrics["kv_pages_exported"] += len(ids)
+        self.metrics["kv_migrations_out"] += 1
+        return {"page_size": self.page_size, "model": plan["model"],
+                "tokens": plan["tokens"],
+                "full_pages": plan["full_pages"],
+                "partial_len": plan["partial_len"],
+                "k": data["k"], "v": data["v"], "dtype": data["dtype"]}
+
+    def import_prefix_kv(self, payload: dict | None) -> int:
+        """Adopt a migrated KV payload (this engine's export or the JAX
+        package's): reserve pages, scatter the data in and register the
+        chain under the hashes the source used, so the next admission of
+        the same prompt maps the pages as prefix hits. Returns the prompt
+        tokens now servable from cache; 0 is a clean fallback (pressure,
+        another page size, unsupported) and the request prefills cold."""
+        if not payload or not self.supports_kv_migration \
+                or payload.get("page_size") != self.page_size:
+            return 0
+        full_pages = int(payload.get("full_pages") or 0)
+        plen = int(payload.get("partial_len") or 0)
+        if not self._cow_enabled:
+            plen = 0  # partial tails need row-granular suffix starts
+        want = full_pages + (1 if plen else 0)
+        if want <= 0:
+            return 0
+        with self._lock:
+            pages = (self.allocator.alloc(want)
+                     if self.allocator.available() >= want else None)
+        if pages is None:
+            # Import under pressure: never take live sequences' headroom
+            # for a cache import.
+            self.metrics["kv_import_failures"] += 1
+            return 0
+        data = {"k": np.asarray(payload["k"])[:, :want],
+                "v": np.asarray(payload["v"])[:, :want],
+                "dtype": payload.get("dtype")}
+        try:
+            self.executor.import_pages(pages, data)
+        except (RuntimeError, ValueError):
+            logger.warning("KV import failed", exc_info=True)
+            with self._lock:
+                for pid in pages:
+                    self.allocator.release(pid)
+            self.metrics["kv_import_failures"] += 1
+            return 0
+        return self.register_imported_chain(
+            pages, payload["tokens"], full_pages, plen,
+            model=payload.get("model") or None)
+
+    def register_imported_chain(self, page_ids: list[int], tokens,
+                                full_pages: int, partial_len: int,
+                                model: str | None = None) -> int:
+        """Register freshly imported pages in the prefix trie under chain
+        hashes recomputed from their token ids. The caller holds one alloc
+        ref per page; registration releases it, leaving the pages cached.
+        A chain link already resident keeps the local page, and the
+        duplicate frees back to the pool. Returns the prompt tokens the
+        chain (existing and new) covers."""
+        ps = self.page_size
+        with self._lock:
+            root, chain = self._chain_hashes(tokens, model)
+            parent = root
+            covered = 0
+            kept = 0
+            for i in range(min(full_pages, len(chain), len(page_ids))):
+                h, pid = chain[i], page_ids[i]
+                if self.allocator.lookup_prefix(h) is None:
+                    self.allocator.register_prefix(pid, h, parent)
+                    kept += 1
+                self.allocator.release(pid)  # cached if registered, else freed
+                parent = h
+                covered = (i + 1) * ps
+            if partial_len and len(page_ids) > full_pages:
+                pid = page_ids[full_pages]
+                tail = tuple(int(t) for t in tokens[
+                    full_pages * ps:full_pages * ps + partial_len])
+                if tail and self._cow_enabled:
+                    self.allocator.register_partial(parent, tail, pid)
+                self.allocator.release(pid)
+                entry = self.allocator._partials.get(parent, {}).get(tail)
+                if tail and entry is not None:
+                    # Registered now, or an equal entry already resident:
+                    # either way those rows are servable.
+                    covered += len(tail)
+                    if entry == pid:
+                        kept += 1
+            self.metrics["kv_pages_imported"] += kept
+            if kept or covered:
+                self.metrics["kv_migrations_in"] += 1
+        return covered
+
+    def release_export_pins(self, r: Request) -> None:
+        """Drop the refs ``pin_for_export`` took at the retire; the pages
+        become ordinary evictable cache entries. The exporter is done, so
+        this also turns the request's export pinning off: a source that
+        ends before its request retires (it died mid-prefill) leaves no
+        pins behind, in whichever order the two threads get here."""
+        with self._lock:
+            r.pin_for_export = False
+            pins, r.export_pinned = r.export_pinned, []
+            for pid in pins:
+                self.allocator.release(pid)
 
     def generate(self, prompt: list[int], max_new_tokens: int = 32,
                  temperature: float = 0.0,

@@ -12,15 +12,20 @@ interaction goes through ``LocalEngineExecutor``:
   * ``verify(...)`` — the speculative verify of every slot's draft, one
     host sync;
   * ``copy_pages(src, dst)`` — the prefix cache's copy-on-write fork;
+  * ``export_pages(ids)`` / ``import_pages(ids, data)`` — the host gather
+    and scatter of KV migration and of the host-RAM KV tier;
   * ``install_adapter(slot, arrays)`` — one adapter into the LoRA stack
     (with ``lora_config``), which ``prefill(lora_slot=)``, ``decode`` and
     ``mixed`` (``lora_idx``) then read.
 
-Meshes, pipeline stages, KV migration and weight residency are not
-ported yet; the ``supports_*`` flags say so.
+``params`` may be swapped by the engine's weight residency (demoted to
+host RAM and promoted back). Meshes and pipeline stages are not ported
+yet; the ``supports_*`` flags say so.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -29,7 +34,9 @@ from .._device import resolve_device
 from ..models.llama import PRESETS, LlamaConfig, init_params
 from .lora import init_lora_stack, install_slot
 from .model import (copy_pages, decode_loop, init_pages, mixed_dispatch,
-                    prefill_chunk, sample_first_batch, verify_block)
+                    prefill_chunk, sample_first_batch, verify_block,
+                    write_pages)
+from .weights import host_to_tensor, tensor_to_host
 
 
 def resolve_attention_impl(attention_impl: str = "auto",
@@ -50,8 +57,8 @@ class LocalEngineExecutor:
     """Params, page pool, sampling generator, hidden-state stash and (with
     ``lora_config``) the LoRA adapter stack on one device."""
 
-    supports_kv_migration = False
-    supports_weight_residency = False
+    supports_kv_migration = True
+    supports_weight_residency = True
     supports_prefix_cow = True
     supports_mixed_dispatch = True
 
@@ -84,6 +91,10 @@ class LocalEngineExecutor:
             seed ^ 0x5EED)
         # handle -> device hidden state [E] awaiting first-token sampling
         self._hidden: dict[int, torch.Tensor] = {}
+        # Serializes every read and write of the pool: migration exports
+        # and imports run on request threads while the engine loop
+        # dispatches.
+        self._pages_lock = threading.RLock()
         self.lora_stack = None
         if lora_config is not None:
             self.lora_stack = init_lora_stack(
@@ -121,12 +132,14 @@ class LocalEngineExecutor:
         live = self._bucket_pages(-(-int(start_pos) // self.page_size),
                                   block_table.shape[0])
         # A base prompt (slot 0) adds no delta: it skips the LoRA terms.
-        _, hidden = prefill_chunk(
-            self.params, self.pages, self._put(block_table.astype(np.int32)),
-            self._put(tokens.astype(np.int32)), int(start_pos),
-            config=self.config, page_size=self.page_size, live_pages=live,
-            lora=self.lora_stack if lora_slot else None,
-            lora_slot=int(lora_slot))
+        with self._pages_lock:
+            _, hidden = prefill_chunk(
+                self.params, self.pages,
+                self._put(block_table.astype(np.int32)),
+                self._put(tokens.astype(np.int32)), int(start_pos),
+                config=self.config, page_size=self.page_size,
+                live_pages=live, lora=self.lora_stack if lora_slot else None,
+                lora_slot=int(lora_slot))
         if handle is not None:  # final chunk: stash for first-token sampling
             self._hidden[handle] = hidden[take - 1]
 
@@ -177,13 +190,14 @@ class LocalEngineExecutor:
                pos: np.ndarray, temps: np.ndarray, eos_ids: np.ndarray,
                remaining: np.ndarray, n_steps: int,
                lora_idx: np.ndarray | None = None) -> np.ndarray:
-        toks, _ = decode_loop(
-            self.params, self.pages,
-            *self._decode_args(block_tables, tokens, pos, temps, eos_ids,
-                               remaining),
-            self._generator, config=self.config, page_size=self.page_size,
-            n_steps=n_steps,
-            **self._decode_kwargs(pos, n_steps, block_tables, lora_idx))
+        with self._pages_lock:
+            toks, _ = decode_loop(
+                self.params, self.pages,
+                *self._decode_args(block_tables, tokens, pos, temps, eos_ids,
+                                   remaining),
+                self._generator, config=self.config,
+                page_size=self.page_size, n_steps=n_steps,
+                **self._decode_kwargs(pos, n_steps, block_tables, lora_idx))
         return toks.cpu().numpy()  # [n_steps, slots] — the one sync
 
     def verify(self, block_tables: np.ndarray, tokens_mat: np.ndarray,
@@ -197,21 +211,57 @@ class LocalEngineExecutor:
         # ride the staging carry), so the page bound ignores the depth.
         needed = max(1, (int(pos.max()) + self.page_size - 1)
                      // self.page_size)
-        toks, live, _ = verify_block(
-            self.params, self.pages,
-            *self._decode_args(block_tables, tokens_mat, pos, temps, eos_ids,
-                               remaining),
-            self._generator, config=self.config, page_size=self.page_size,
-            n_draft=int(tokens_mat.shape[1]) - 1, paged=self.paged_attention,
-            live_pages=self._bucket_pages(needed, block_tables.shape[1]),
-            sample=bool((temps > 0).any()))
+        with self._pages_lock:
+            toks, live, _ = verify_block(
+                self.params, self.pages,
+                *self._decode_args(block_tables, tokens_mat, pos, temps,
+                                   eos_ids, remaining),
+                self._generator, config=self.config,
+                page_size=self.page_size,
+                n_draft=int(tokens_mat.shape[1]) - 1,
+                paged=self.paged_attention,
+                live_pages=self._bucket_pages(needed, block_tables.shape[1]),
+                sample=bool((temps > 0).any()))
         # tokens and live cross to the host in one copy: the one sync
         out = torch.stack([toks, live.to(torch.int32)]).cpu().numpy()
         return out[0], out[1].astype(bool)
 
     def copy_pages(self, src, dst) -> None:
-        copy_pages(self.pages, self._put(np.asarray(src, np.int64)),
-                   self._put(np.asarray(dst, np.int64)))
+        with self._pages_lock:
+            copy_pages(self.pages, self._put(np.asarray(src, np.int64)),
+                       self._put(np.asarray(dst, np.int64)))
+
+    # ---------------------------------------------------------- KV migration
+    def export_pages(self, page_ids) -> dict:
+        """Device-to-host gather of the named pages' K/V across every
+        layer: the payload of a migration chunk or a host-tier spill. The
+        caller holds refcounts on the pages so the allocator cannot
+        recycle them mid-pull. Returns ``{"k", "v"}`` numpy arrays [L, m,
+        KH, page, D] (a bfloat16 pool as raw 16-bit integers) and
+        ``"dtype"``, the pool's dtype name. The copy is synchronous: the
+        arrays are filled when this returns."""
+        ids = self._put(np.asarray(page_ids, np.int64))
+        with self._pages_lock:
+            k, dtype = tensor_to_host(self.pages["k"][:, ids])
+            v, _ = tensor_to_host(self.pages["v"][:, ids])
+        return {"k": k, "v": v, "dtype": dtype}
+
+    def import_pages(self, page_ids, data) -> None:
+        """Host-to-device scatter of migrated page contents into freshly
+        reserved pages, which no live block table holds. ``data``:
+        ``{"k", "v"}`` [L, m, KH, page, D] numpy arrays — float32,
+        bfloat16 (``ml_dtypes``, a JAX payload), or raw 16-bit integers
+        with ``"dtype": "bfloat16"`` (this executor's export) — cast to
+        the pool's dtype."""
+        dtype = data.get("dtype")
+        k = host_to_tensor(data["k"], dtype).to(self.device)
+        v = host_to_tensor(data["v"], dtype).to(self.device)
+        if k.shape[1] != len(page_ids) or v.shape != k.shape:
+            raise ValueError(f"{len(page_ids)} pages, but k {tuple(k.shape)}"
+                             f" and v {tuple(v.shape)}")
+        with self._pages_lock:
+            write_pages(self.pages, self._put(np.asarray(page_ids, np.int64)),
+                        k, v)
 
     def mixed(self, prefill_plans: list, block_tables: np.ndarray,
               tokens: np.ndarray, pos: np.ndarray, temps: np.ndarray,
@@ -231,13 +281,15 @@ class LocalEngineExecutor:
                         int(p["start_pos"])))
             op_live.append(self._bucket_pages(
                 -(-int(p["start_pos"]) // self.page_size), bt.shape[0]))
-        toks, _, hiddens = mixed_dispatch(
-            self.params, self.pages, tuple(ops),
-            *self._decode_args(block_tables, tokens, pos, temps, eos_ids,
-                               remaining),
-            self._generator, config=self.config, page_size=self.page_size,
-            n_steps=n_steps, prefill_live_pages=tuple(op_live),
-            **self._decode_kwargs(pos, n_steps, block_tables, lora_idx))
+        with self._pages_lock:
+            toks, _, hiddens = mixed_dispatch(
+                self.params, self.pages, tuple(ops),
+                *self._decode_args(block_tables, tokens, pos, temps, eos_ids,
+                                   remaining),
+                self._generator, config=self.config,
+                page_size=self.page_size, n_steps=n_steps,
+                prefill_live_pages=tuple(op_live),
+                **self._decode_kwargs(pos, n_steps, block_tables, lora_idx))
         for p, hidden in zip(prefill_plans, hiddens):
             if p.get("handle") is not None:
                 self._hidden[p["handle"]] = hidden[p["take"] - 1]

@@ -282,6 +282,17 @@ def copy_pages(pages: dict, src, dst) -> dict:
     return pages
 
 
+def write_pages(pages: dict, dst, k_rows, v_rows) -> dict:
+    """KV-migration import: scatter transferred page contents into pages
+    ``dst`` across every layer, in place, cast to the pool's dtype (the
+    inverse of the export gather). dst: [m] page ids; k_rows/v_rows:
+    [L, m, KH, page, D]."""
+    dst = dst.long()
+    pages["k"][:, dst] = k_rows.to(pages["k"].dtype)
+    pages["v"][:, dst] = v_rows.to(pages["v"].dtype)
+    return pages
+
+
 def _rows(lora, lora_idx):
     return None if lora is None else slot_rows(lora, lora_idx)
 
