@@ -60,6 +60,29 @@ Phases, each printing JSON lines:
                 mixed dispatch, a prefix hit), with the paged kernels' launch
                 counts read around the run (16 a decode step of the split
                 kernel, 0 of the single one);
+  deadline      request deadlines in the ``serve`` geometry at llama3-1b
+                bf16: 16 requests of 64 tokens, each under its own trace;
+                4 arrive past their deadline and expire queued, a
+                2,000-token prompt expires after its first prefill chunk,
+                3 expire after their first token (deadlines set between
+                steps, a few ms ahead, so they pass inside a dispatch), 8
+                run to their length. Checks the finish reasons and both
+                counters, that each tick's pinned pages are exactly those
+                of the requests still running (an expiry's pages leave in
+                its tick), the pool back at its baseline, 16 split
+                launches a decode step and 0 single, one timeline dump per
+                expiry opening at admission, and the prefix-match, prefill
+                and decode spans of each served request; prints the
+                overshoot from deadline to the sweep and to the returned
+                event beside the dispatch wall time;
+  recorder      the flight recorder's cost: 8 requests of 97 tokens on an
+                engine sharing those weights, without a prefix cache, with
+                the recorder on and stubbed off, 3 turns of on/off/off/on;
+                tokens must be equal in all 12 runs; prints
+                ``recorder_overhead_frac`` (median over the turns of
+                (on - off) / off of the runs' median dispatch wall time),
+                the host time of a dispatch's token emission on and off,
+                and one ``RequestTimeline.add`` timed alone;
   profile       one more decode dispatch on that engine under torch.profiler:
                 the card's idle share, kernels launched per step and the
                 paged kernels' device time;
@@ -173,6 +196,7 @@ from ray_tpu_torch.models import llama as llama_model
 from ray_tpu_torch.models.llama import (PRESETS, init_params,
                                         lm_head_grads_f32, loss_fn,
                                         train_flops_per_token)
+from ray_tpu_torch.observability import loop_recorder, tracing
 from ray_tpu_torch.ops.attention import (flash_dkdv_cuda, flash_dkdv_kernel,
                                          flash_dkdv_plain,
                                          flash_dkdv_sm90_cuda,
@@ -1197,6 +1221,276 @@ def _profile_dispatch(eng: InferenceEngine, rng, cfg,
             "decode_kernel_ms": sum(paged_ms.values()),
             "paged_kernel_ms": paged_ms,
             "kernels_per_step": len(kernels) / STEPS}
+
+
+# ---------------------------------------------------------------- deadline
+DEADLINE_NEW = 64
+# How far past the moment it is set each running request's deadline lies:
+# longer than the gap to the next step's sweep, shorter than one dispatch,
+# so it passes inside that step's dispatch and the step after sweeps it.
+DEADLINE_AFTER_S = {"pf": 0.002, "mid0": 0.002, "mid1": 0.005,
+                    "mid2": 0.010}
+RECORDER_TURNS = 3
+RECORDER_NEW = 1 + 3 * STEPS     # the first sample, then 3 dispatches
+
+
+def _deadline_traffic(rng, vocab: int) -> list:
+    """(name, prompt, deadline) of the phase's 16 requests: 4 already past
+    their deadline, a 2,000-token prompt and 3 short ones whose deadlines
+    are set as they run, and 8 with none."""
+    past = time.time() - 1.0
+
+    def prompt(n):
+        return rng.integers(0, vocab, n).tolist()
+
+    return ([(f"dead{i}", prompt(40 + 10 * i), past) for i in range(4)]
+            + [("pf", prompt(2000), None)]
+            + [(f"mid{i}", prompt(60 + 20 * i), None) for i in range(3)]
+            + [(f"ok{i}", prompt(16 + 24 * i), None) for i in range(8)])
+
+
+def _held_by_live(reqs) -> int:
+    """Pages the requests still running hold (no prefix is shared: the
+    prompts are random)."""
+    return sum(len(r.block_table) + (r.cow_page is not None)
+               for r in reqs if not r.done)
+
+
+def _recorder_run(eng: InferenceEngine, prompts: list) -> tuple:
+    """The recorder turns' traffic on ``eng``: every request's tokens, the
+    median wall time of its decode dispatches, and the median host time
+    of a dispatch's token emission (``_emit_decode_events``: one
+    ``_emit``, and one recorder event, a token)."""
+    reqs = _submit(eng, {f"rec{i}": p for i, p in enumerate(prompts)},
+                   RECORDER_NEW)
+    mix = eng.metrics["engine_step_mix"]
+    dispatch_ms, emit_ms = [], []
+    emit = eng._emit_decode_events
+
+    def timed_emit(*args):
+        t0 = time.perf_counter()
+        out = emit(*args)
+        emit_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng._emit_decode_events = timed_emit
+    try:
+        while any(not r.done for r in reqs):
+            before = mix["decode"] + mix["mixed"]
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            if mix["decode"] + mix["mixed"] > before:
+                dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        del eng._emit_decode_events
+    return ([r.generated for r in reqs], float(np.median(dispatch_ms)),
+            float(np.median(emit_ms)))
+
+
+def _add_ns(n: int = 200_000) -> float:
+    """One ``RequestTimeline.add`` as the engine calls it for a token."""
+    tl = loop_recorder.RequestTimeline()
+    t0 = time.perf_counter()
+    for i in range(n):
+        tl.add(loop_recorder.EV_TOKEN, i)
+    return (time.perf_counter() - t0) / n * 1e9
+
+
+def phase_deadline(seed: int = 0) -> dict:
+    """Request deadlines at llama3-1b bf16 in the ``serve`` geometry: 16
+    requests of 64 tokens, each under its own trace; 4 expire queued, the
+    2,000-token prompt after its first prefill chunk, 3 after their first
+    token (their deadlines set between steps), 8 run to their length.
+    Every expired request's pages leave the pool's pinned count in the
+    tick it expires; the pool ends at its baseline; each expiry dumps a
+    timeline that opens at admission and holds the expiry; each served
+    request has its prefix-match, prefill and decode spans. Then the
+    recorder's cost: the same traffic with the recorder on and stubbed
+    off, in turns, with equal tokens. Returns the paged kernels' launch
+    counts over the deadline run."""
+    cfg = PRESETS["llama3-1b"]
+    rng = np.random.default_rng(seed)
+    eng = InferenceEngine(
+        "llama3-1b", max_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+        prefill_chunk_size=CHUNK, decode_steps_per_dispatch=STEPS,
+        attention_impl="auto", seed=seed)
+    baseline = eng.pool_stats()
+    reqs = {}
+    for name, prompt, deadline in _deadline_traffic(rng, cfg.vocab_size):
+        with tracing.span("chip_smoke.request", root=True):
+            reqs[name] = Request(name, prompt, max_new_tokens=DEADLINE_NEW,
+                                 deadline=deadline)
+            eng.add_request(reqs[name])
+    live = list(reqs.values())
+    mix = eng.metrics["engine_step_mix"]
+    ended, dispatch_ms, ticks = {}, [], 0
+    reset_paged_launches()
+    while any(not r.done for r in live):
+        before = mix["decode"] + mix["mixed"]
+        t0 = time.perf_counter()
+        events = eng.step()
+        torch.cuda.synchronize()
+        now = time.time()
+        if mix["decode"] + mix["mixed"] > before:
+            dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+        ticks += 1
+        for e in events:
+            if not e["done"]:
+                continue
+            ended[e["request_id"]] = now
+            r = reqs[e["request_id"]]
+            if e["finish_reason"] == "deadline" and (
+                    r.slot != -1 or r.block_table or r.cow_page is not None):
+                raise AssertionError(f"{r.request_id} expired holding slot "
+                                     f"{r.slot}, pages {r.block_table}")
+        pinned = eng.pool_stats()["pinned"]
+        if pinned != _held_by_live(live):
+            raise AssertionError(f"tick {ticks}: {pinned} pages pinned, "
+                                 f"{_held_by_live(live)} held by live "
+                                 "requests")
+        # deadlines set between steps, once each request has got that far
+        for name, after_s in DEADLINE_AFTER_S.items():
+            r = reqs[name]
+            started = (r.prefill_pos > 0 if name == "pf"
+                       else r.first_token_at is not None)
+            if r.deadline is None and started and not r.done:
+                r.deadline = time.time() + after_s
+        if ticks > 10_000:
+            raise AssertionError("deadline traffic did not drain")
+    launches = paged_launches()
+
+    m, stats = eng.metrics, eng.pool_stats()
+    finish = {n: (r.finish_reason, len(r.generated)) for n, r in reqs.items()}
+    bad = {n: f for n, f in finish.items() if not (
+        (n.startswith(("dead", "pf")) and f == ("deadline", 0))
+        or (n.startswith("mid") and f[0] == "deadline"
+            and 1 <= f[1] < DEADLINE_NEW)
+        or (n.startswith("ok") and f == ("length", DEADLINE_NEW)))}
+    if bad or not 0 < reqs["pf"].prefill_pos < len(reqs["pf"].prompt):
+        raise AssertionError(f"finish reasons {bad}, pf prefilled "
+                             f"{reqs['pf'].prefill_pos}")
+    for r in reqs.values():
+        toks = np.asarray(r.generated, dtype=np.int64)
+        if toks.size and (toks.min() < 0 or toks.max() >= cfg.vocab_size):
+            raise AssertionError(f"{r.request_id}: bad output {r.generated}")
+    counters = (m["deadline_expired_queued"], m["deadline_expired_running"],
+                m["timeline_dumps"])
+    if counters != (4, 4, 8):
+        raise AssertionError(f"deadline counters {counters} != (4, 4, 8)")
+    if not (stats["pinned"] == 0 and stats["active_slots"] == 0
+            and stats["free"] + stats["cached"]
+            == baseline["free"] + baseline["cached"]):
+        raise AssertionError(f"pool {stats} against baseline {baseline}")
+    on_route = paged_kernel_of(cfg.dtype)
+    expected = {name: cfg.n_layers * m["decode_steps"] if name == on_route
+                else 0 for name in PAGED_KERNELS}
+    if launches != expected or m["decode_steps"] == 0:
+        raise AssertionError(f"deadline launches {launches} != {expected}")
+    # the dumps: one per expiry, each opening at admission
+    dumps = {s["attrs"]["request_id"]: s["attrs"] for s in
+             tracing.local_spans() if s["name"] == "llm.request_timeline"
+             and s["attrs"]["request_id"] in reqs}
+    expired = sorted(n for n, f in finish.items() if f[0] == "deadline")
+    for name in expired:
+        attrs = dumps.get(name)
+        names = [e["ev"] for e in attrs["events"]] if attrs else []
+        if not (names and names[0] == "admit"
+                and "deadline_expired" in names
+                and attrs["reason"] == "deadline"):
+            raise AssertionError(f"{name}: timeline dump {names}")
+    if sorted(dumps) != expired:
+        raise AssertionError(f"dumps {sorted(dumps)} != {expired}")
+    # the spans of every request that ran
+    for name, r in reqs.items():
+        got = {s["name"] for s in tracing.local_spans(r.trace["trace_id"])}
+        want = {"chip_smoke.request"}
+        if not name.startswith("dead"):
+            want |= {"llm.prefix_match", "llm.decode"}
+        if name.startswith(("mid", "ok")):
+            want.add("llm.prefill")
+        if not want <= got:
+            raise AssertionError(f"{name}: spans {sorted(got)}, missing "
+                                 f"{sorted(want - got)}")
+    # overshoot of each running expiry: to its sweep (the pages freed, the
+    # timeline's expiry time) and to the step that returned its event
+    running = [reqs[n] for n in DEADLINE_AFTER_S]
+    to_sweep = [(next(e["t"] for e in r.timeline.events()
+                      if e["ev"] == "deadline_expired") - r.deadline) * 1e3
+                for r in running]
+    to_event = [(ended[r.request_id] - r.deadline) * 1e3 for r in running]
+    emit("deadline", preset="llama3-1b", requests=len(reqs), ticks=ticks,
+         finish=finish, deadline_expired_queued=counters[0],
+         deadline_expired_running=counters[1], timeline_dumps=counters[2],
+         pool=stats, pool_baseline=baseline,
+         kernel_launches=launches, expected_launches=expected,
+         decode_steps=m["decode_steps"], engine_step_mix=mix,
+         overshoot_to_event_ms={"p50": float(np.median(to_event)),
+                                "max": float(max(to_event)),
+                                "each": to_event},
+         overshoot_to_sweep_ms={"p50": float(np.median(to_sweep)),
+                                "max": float(max(to_sweep)),
+                                "each": to_sweep},
+         dispatch_wall_ms={"p50": float(np.median(dispatch_ms)),
+                           "max": float(max(dispatch_ms)),
+                           "n": len(dispatch_ms)},
+         breach_samples=[{k: row[k] for k in ("request_id", "reason",
+                                               "n_events")}
+                         for row in eng.breach_samples()])
+    _recorder_turns(eng, rng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _recorder_turns(eng: InferenceEngine, rng, cfg) -> None:
+    """The flight recorder's cost: one traffic (8 requests of 256-token
+    prompts, 97 tokens each) served with the recorder on and with
+    ``RequestTimeline.add`` stubbed out, each turn on/off/off/on (a drift
+    of the host's speed within a turn cancels), on an engine without a
+    prefix cache sharing the weights, so every run has the same shapes
+    and gives the same tokens."""
+    twin = InferenceEngine(
+        "llama3-1b", eng.executor.params, max_slots=SLOTS, max_len=MAX_LEN,
+        page_size=PAGE, prefill_chunk_size=CHUNK,
+        decode_steps_per_dispatch=STEPS, attention_impl="auto",
+        enable_prefix_cache=False)
+    prompts = [rng.integers(0, cfg.vocab_size, 256).tolist()
+               for _ in range(SLOTS)]
+    add = loop_recorder.RequestTimeline.add
+    runs = {"on": [], "off": []}
+    emits = {"on": [], "off": []}
+    tokens = []
+    try:
+        for _ in range(RECORDER_TURNS):
+            for mode in ("on", "off", "off", "on"):
+                loop_recorder.RequestTimeline.add = (
+                    add if mode == "on" else lambda *a, **k: None)
+                toks, ms, emit_ms = _recorder_run(twin, prompts)
+                runs[mode].append(ms)
+                emits[mode].append(emit_ms)
+                tokens.append(toks)
+    finally:
+        loop_recorder.RequestTimeline.add = add
+    same = all(t == tokens[0] for t in tokens)
+    on, off = (np.reshape(runs[m], (RECORDER_TURNS, 2)).sum(axis=1)
+               for m in ("on", "off"))
+    fracs = ((on - off) / off).tolist()
+    emit("recorder", preset="llama3-1b", turns=RECORDER_TURNS,
+         requests=SLOTS, new_tokens=RECORDER_NEW,
+         dispatch_ms_on=runs["on"], dispatch_ms_off=runs["off"],
+         recorder_overhead_frac=float(np.median(fracs)),
+         overhead_frac_each=fracs,
+         # the host time of a dispatch's token emission, where the
+         # recorder's per-token event is stored
+         emit_ms_on=emits["on"], emit_ms_off=emits["off"],
+         recorder_emit_ms=float(np.median(emits["on"])
+                                - np.median(emits["off"])),
+         add_ns=_add_ns(), events_per_dispatch=SLOTS * STEPS,
+         tokens_equal=same)
+    if not same:
+        raise AssertionError("tokens differ between recorder on and off")
+    del twin
 
 
 def phase_parity(seed: int = 1) -> dict:
@@ -2494,6 +2788,7 @@ def main() -> int:
     train_launches = phase_train()
     parity_launches = phase_train_parity()
     launches = phase_serve()
+    deadline_launches = phase_deadline()
     paged_parity_launches = phase_parity()
     spec_parity_launches = phase_spec_parity()
     verify_launches = phase_speculate()
@@ -2512,6 +2807,8 @@ def main() -> int:
             # path (parity) instead
             "launches": launches[name],
             "launches_f32_parity": paged_parity_launches[name],
+            # the deadline phase's run (bf16, `deadline`)
+            "launches_deadline": deadline_launches[name],
             # the speculative runs (`speculate`, bf16) and the f32
             # speculative parity runs (`spec_parity`)
             "launches_verify": verify_launches[name],

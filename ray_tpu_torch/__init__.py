@@ -19,6 +19,6 @@ from numpy), differentiated with ``torch.autograd``, on whatever device
 the params lie.
 """
 
-from . import llm, models, ops
+from . import llm, models, observability, ops
 
-__all__ = ["llm", "models", "ops"]
+__all__ = ["llm", "models", "observability", "ops"]

@@ -1,7 +1,8 @@
 """Paged-KV LLM serving: engine, executor, model programs, speculative
-decoding, multi-LoRA serving, KV migration and the host tiers of KV pages
-and weights."""
+decoding, multi-LoRA serving, KV migration, the host tiers of KV pages
+and weights, and request deadlines with the flight recorder and spans."""
 
+from ..observability.loop_recorder import RequestTimeline
 from .engine import InferenceEngine, PageAllocator, QueueFullError, Request
 from .executor import (LocalEngineExecutor, resolve_attention_impl,
                        resolve_device)
@@ -19,7 +20,8 @@ from .weights import (WeightBroadcastSource, host_to_device,
 __all__ = ["AdapterCapacityError", "ByteTokenizer", "Drafter",
            "InferenceEngine", "KVMigrationSource", "LoRAManager",
            "LoRAServingConfig", "LocalEngineExecutor", "NgramDrafter",
-           "PageAllocator", "QueueFullError", "Request", "SpeculationConfig",
+           "PageAllocator", "QueueFullError", "Request", "RequestTimeline",
+           "SpeculationConfig",
            "WeightBroadcastSource", "decode_step", "host_to_device",
            "init_pages", "pages_from_numpy", "params_fingerprint",
            "params_from_numpy", "prefill_chunk", "receive_kv_stream",

@@ -39,10 +39,25 @@ Pages and weights move between tiers:
     (or the next request) brings them back; ``install_weights`` adopts a
     tree received over the broadcast wire (``weights.py``).
 
-Not ported yet (later slices): tenant quotas and the fair queue, request
-deadlines, and the flight recorder and tracing spans (among them the
-speculation round's event, the ``llm.speculate``, ``llm.kv_migrate`` and
-``llm.adapter_load`` spans).
+Overload and observability:
+
+  * **Deadlines**: ``Request.deadline`` (wall clock) is swept at the top
+    of every ``step``. A request that expires while waiting never touches
+    a slot or a page (``deadline_expired_queued``); one that expires while
+    prefilling, awaiting its first sample or decoding is retired that
+    tick, its slot, pages and pins returned (``deadline_expired_running``).
+    Either way its stream ends with finish reason ``"deadline"``.
+  * **Flight recorder**: every request carries a bounded ``timeline``
+    (``observability/loop_recorder.py``) of its admission, prefix hit, COW
+    fork, prefill chunks, first token, tokens, speculation rounds, expiry
+    or shed, and retire; a breach dumps it once as an
+    ``llm.request_timeline`` span (``dump_timeline``, ``breach_samples``).
+  * **Spans**: a request's trace context, captured at ``add_request``,
+    parents its ``llm.prefix_match``, ``llm.prefill``, ``llm.decode`` and
+    ``llm.speculate`` spans, and a cold adapter's ``llm.adapter_load``.
+
+Not ported yet (later slices): tenant quotas and the fair queue, and the
+serve layer's ``llm.kv_migrate`` span and migration event.
 """
 
 from __future__ import annotations
@@ -60,6 +75,7 @@ from typing import Any
 import numpy as np
 
 from ..models.llama import PRESETS, LlamaConfig
+from ..observability import loop_recorder, tracing
 from . import weights as wlib
 from .executor import LocalEngineExecutor
 from .lora import LoRAManager
@@ -93,8 +109,12 @@ class Request:
     done: bool = False
     finish_reason: str = ""
     lora_slot: int = 0
+    # Arrival and first token on the monotonic clock (latencies) and on
+    # the wall clock (span and timeline times).
     arrived_at: float = field(default_factory=time.monotonic)
+    arrived_wall: float = field(default_factory=time.time)
     first_token_at: float | None = None
+    first_token_wall: float | None = None
     cached_prefix_tokens: int = 0
     # Prefix sharing: the first `shared_pages` block-table entries are
     # refcounted read-only cache pages; `cow_page` is the page reserved at
@@ -110,16 +130,34 @@ class Request:
     prefill_only: bool = False
     pin_for_export: bool = False
     export_pinned: list[int] = field(default_factory=list)
+    # End-to-end deadline, absolute on the ``time.time()`` scale; None
+    # never expires. Swept at each step's start (``_expire_deadlines``).
+    deadline: float | None = None
+    # Trace context ({"trace_id", "span_id"}) captured from the submitting
+    # thread at ``add_request``: the engine's spans parent onto it.
+    trace: dict | None = None
     # Speculation: drafted tokens verified for this request, drafts
     # accepted, and verify rounds that rolled a draft back.
     spec_drafted: int = 0
     spec_accepted: int = 0
     spec_rollbacks: int = 0
+    # Flight recorder: the request's bounded event log, dumped once on a
+    # breach (``InferenceEngine.dump_timeline``).
+    timeline: loop_recorder.RequestTimeline | None = None
+
+    def __post_init__(self):
+        if self.timeline is None:
+            self.timeline = loop_recorder.RequestTimeline()
 
 
 class QueueFullError(RuntimeError):
     """The bounded admission queue (``max_queued_requests``) refused the
-    request; ``retry_after`` (seconds) is the backlog over the slots."""
+    request; ``retry_after`` (seconds) is the backlog over the slots. The
+    class attributes are the HTTP answer a serving proxy gives (503 with
+    Retry-After)."""
+
+    http_status = "503 Service Unavailable"
+    reason = "replica_queue_full"
 
     def __init__(self, message: str, retry_after: int = 1):
         super().__init__(message)
@@ -441,6 +479,11 @@ class InferenceEngine:
                         # Steps where live decode streams waited behind a
                         # prefill-only dispatch.
                         "decode_stall_steps": 0,
+                        # Deadline expiries by where the request was:
+                        # queued (never touched a slot or a page) or
+                        # running (retired the tick it expired).
+                        "deadline_expired_queued": 0,
+                        "deadline_expired_running": 0,
                         "queue_rejects": 0, "admission_rejects": 0,
                         # Admissions deferred because every resident
                         # adapter was pinned by an in-flight request.
@@ -471,7 +514,13 @@ class InferenceEngine:
                         # Weight residency: demotions to host RAM,
                         # promotions back, and the last promotion's time.
                         "weights_demoted": 0, "weights_promoted": 0,
-                        "weight_promote_ms": 0.0}
+                        "weight_promote_ms": 0.0,
+                        # Flight recorder: timelines dumped as
+                        # llm.request_timeline spans on a breach, at most
+                        # one a request.
+                        "timeline_dumps": 0}
+        # The last few breach dumps (the full events are in the span).
+        self._breach_samples: deque[dict] = deque(maxlen=8)
         if self.host_kv_cache_pages and enable_prefix_cache and \
                 getattr(executor, "supports_kv_migration", False):
             # The hook holds what the spill needs, not the engine: a bound
@@ -498,6 +547,8 @@ class InferenceEngine:
                              f"max_len {self.max_len}")
         if not request.prompt:
             raise ValueError("empty prompt")
+        if request.trace is None:
+            request.trace = tracing.current_wire()
         # The first request onto a demoted engine promotes the weights
         # before it queues: its TTFT carries the copy.
         self._ensure_weights_resident()
@@ -505,13 +556,23 @@ class InferenceEngine:
             if self.max_queued_requests and \
                     len(self._waiting) >= self.max_queued_requests:
                 self.metrics["queue_rejects"] += 1
-                backlog = (len(self._waiting) + len(self._prefilling)
-                           + len(self._active) + 1)
-                raise QueueFullError(
+                err = QueueFullError(
                     f"engine admission queue is full ({len(self._waiting)} "
                     f"waiting, bound {self.max_queued_requests})",
-                    retry_after=max(1, min(60, -(-backlog // self.max_slots))))
+                    retry_after=self._queue_retry_after_locked())
+                request.timeline.add(loop_recorder.EV_SHED, 0)
+                self.dump_timeline(request, "shed_queue_full")
+                raise err
+            request.timeline.add(loop_recorder.EV_ADMIT, len(request.prompt),
+                                 now=request.arrived_wall)
             self._waiting.append(request)
+
+    def _queue_retry_after_locked(self) -> int:
+        """Retry-After of a shed: the backlog over the slots, in whole
+        seconds between 1 and 60."""
+        backlog = (len(self._waiting) + len(self._prefilling)
+                   + len(self._active) + 1)
+        return max(1, min(60, -(-backlog // self.max_slots)))
 
     def cancel(self, request_id: str) -> None:
         with self._lock:
@@ -548,6 +609,8 @@ class InferenceEngine:
     def _retire_locked(self, r: Request) -> None:
         """Free the request's slot and pages (idempotent). Pages whose K/V
         was computed enter the prefix cache instead of the free list."""
+        if r.slot != -1 or r.block_table:  # the first retire only
+            r.timeline.add(loop_recorder.EV_RETIRE, len(r.generated))
         if r.slot >= 0 and r.slot in self._active:
             self._active.pop(r.slot, None)
             self._free_slots.append(r.slot)
@@ -653,15 +716,77 @@ class InferenceEngine:
                 and getattr(self.executor, "supports_mixed_dispatch", False))
 
     def step(self) -> list[dict]:
-        """Advance one tick: admit waiting requests while slots and pages
-        allow, then dispatch. With mixed dispatch, a step with live
-        decoders and pending prefill runs one fused call; otherwise one
-        prefill chunk runs ahead of decode. Returns emission events
-        ``{"request_id", "token", "done", "finish_reason"}``."""
+        """Advance one tick: expire past deadlines, admit waiting requests
+        while slots and pages allow, then dispatch. With mixed dispatch, a
+        step with live decoders and pending prefill runs one fused call;
+        otherwise one prefill chunk runs ahead of decode. Returns emission
+        events ``{"request_id", "token", "done", "finish_reason"}``."""
         if self.has_work:
             # A demotion that raced admission: no dispatch ever runs
             # without weights.
             self._ensure_weights_resident()
+        expired = self._expire_deadlines()
+        if expired:
+            return expired + self._step_scheduled()
+        return self._step_scheduled()
+
+    def _expire_deadlines(self) -> list[dict]:
+        """Sweep past deadlines at the tick boundary (a deadline that
+        passes inside a dispatch is seen at the next step). A waiting
+        request leaves the queue without a slot or a page
+        (``deadline_expired_queued``); a prefilling, decoding or
+        first-sample-pending one is retired now, its slot, pages and pins
+        returned (``deadline_expired_running``; the flush drops a pending
+        sample's handle). Each expiry emits one terminal event with
+        finish reason ``"deadline"`` and dumps its timeline."""
+        events: list[dict] = []
+        breached: list[Request] = []
+        expired: list[Request] = []
+        now = time.time()
+
+        def past(r: Request) -> bool:
+            return r.deadline is not None and now >= r.deadline
+
+        def terminal(r: Request) -> None:
+            r.done, r.finish_reason = True, "deadline"
+            r.timeline.add(loop_recorder.EV_DEADLINE, 0, now=now)
+            breached.append(r)
+            events.append({"request_id": r.request_id, "token": -1,
+                           "done": True, "finish_reason": "deadline"})
+
+        with self._lock:
+            if any(past(r) for r in self._waiting):
+                keep: deque[Request] = deque()
+                for r in self._waiting:
+                    if past(r):
+                        terminal(r)
+                        self.metrics["deadline_expired_queued"] += 1
+                    else:
+                        keep.append(r)
+                self._waiting = keep
+            if any(past(r) for r in self._prefilling):
+                keep = deque()
+                for r in self._prefilling:
+                    if past(r) and not r.done:
+                        expired.append(r)
+                    else:
+                        keep.append(r)
+                self._prefilling = keep
+            expired += [r for r in self._active.values()
+                        if past(r) and not r.done]
+            expired += [r for r, _h in self._pending_first
+                        if past(r) and not r.done]
+            for r in expired:
+                terminal(r)
+                self._retire_locked(r)
+                self.metrics["deadline_expired_running"] += 1
+        for r in expired:
+            self._record_decode_span(r)
+        for r in breached:
+            self.dump_timeline(r, "deadline")
+        return events
+
+    def _step_scheduled(self) -> list[dict]:
         self._admit()
         mix = self.metrics["engine_step_mix"]
         with self._lock:
@@ -701,6 +826,7 @@ class InferenceEngine:
         return []
 
     def _admit(self) -> None:
+        admitted: list[Request] = []
         with self._lock:
             while self._waiting and self._free_slots:
                 r = self._waiting[0]
@@ -773,6 +899,12 @@ class InferenceEngine:
                 self._lora_idx[r.slot] = r.lora_slot
                 self._block_tables[r.slot, :len(r.block_table)] = r.block_table
                 self._prefilling.append(r)
+                admitted.append(r)
+        for r in admitted:
+            if r.cached_prefix_tokens:
+                r.timeline.add(loop_recorder.EV_PREFIX_HIT,
+                               r.cached_prefix_tokens)
+            self._record_prefix_match_span(r)
 
     def _release_admission_locked(self, r: Request) -> None:
         """Undo a half-admitted request's page state: its shared and
@@ -786,6 +918,26 @@ class InferenceEngine:
         r.shared_pages = 0
         r.partial_len = 0
         r.prefill_pos = 0
+
+    @staticmethod
+    def _record_span(r: Request, name: str, start: float, end: float,
+                     **attrs) -> None:
+        """One ``llm.*`` span of a request that has a trace, parented onto
+        the context captured at ``add_request``."""
+        if r.trace:
+            tracing.record_span(tracing.make_span(
+                name, "llm", start, end, r.trace.get("trace_id", ""),
+                r.trace.get("span_id", ""),
+                attrs={"request_id": r.request_id, **attrs}))
+
+    def _record_prefix_match_span(self, r: Request) -> None:
+        """One span an admission: how much of the prompt the prefix trie
+        served (full-block hits and partial tail rows)."""
+        self._record_span(r, "llm.prefix_match", r.arrived_wall, time.time(),
+                          prompt_tokens=len(r.prompt),
+                          cached_tokens=r.cached_prefix_tokens,
+                          hit_pages=r.shared_pages,
+                          partial_tokens=r.partial_len)
 
     def _prefix_hits(self, r: Request) -> tuple[list[int],
                                                 tuple[int, int] | None]:
@@ -915,6 +1067,7 @@ class InferenceEngine:
             r.shared_pages = idx
             r.cow_page = None
             self.metrics["cow_forks"] += 1
+            r.timeline.add(loop_recorder.EV_COW_FORK, new)
 
     def _prefill_chunk_one(self, r: Request) -> list[dict]:
         self._maybe_cow(r)
@@ -935,6 +1088,7 @@ class InferenceEngine:
                               lora_slot=r.lora_slot)
         self.metrics["prefill_chunks"] += 1
         r.prefill_pos += take
+        r.timeline.add(loop_recorder.EV_PREFILL_CHUNK, take)
         if not final:
             return []
         with self._lock:
@@ -973,6 +1127,7 @@ class InferenceEngine:
         tokens = self.executor.sample_first([h for _, h in live], temps)
         events = []
         now = time.monotonic()
+        now_wall = time.time()
         for i, (r, _) in enumerate(live):
             with self._lock:
                 if r.done:  # cancelled while sampling
@@ -980,8 +1135,67 @@ class InferenceEngine:
                 self._active[r.slot] = r
             r.pos = len(r.prompt)
             r.first_token_at = now
+            r.first_token_wall = now_wall
+            r.timeline.add(loop_recorder.EV_FIRST_TOKEN, r.prefill_pos,
+                           now=now_wall)
+            self._record_prefill_span(r)
             events.append(self._emit(r, int(tokens[i])))
         return events
+
+    def _record_prefill_span(self, r: Request) -> None:
+        """Arrival to first sampled token: the engine's TTFT (queue wait,
+        chunked prefill and the first sample)."""
+        self._record_span(r, "llm.prefill", r.arrived_wall,
+                          r.first_token_wall or time.time(),
+                          prompt_tokens=len(r.prompt),
+                          cached_prefix_tokens=r.cached_prefix_tokens)
+
+    # -------------------------------------------------------- flight recorder
+    def dump_timeline(self, r: Request, reason: str) -> bool:
+        """Dump one request's timeline as one ``llm.request_timeline``
+        span whose attrs carry the whole event list (admission, prefix
+        hit, prefill chunks, first token, tokens, the terminal event). At
+        most once a request: the first breach wins, later calls return
+        False."""
+        tl = r.timeline
+        if tl.dumped:
+            return False
+        tl.dumped = True
+        payload = tl.to_payload()
+        trace = r.trace or {}
+        now = time.time()
+        tracing.record_span(tracing.make_span(
+            "llm.request_timeline", "llm",
+            payload["start"] or r.arrived_wall, now,
+            trace.get("trace_id") or tracing.new_trace_id(),
+            trace.get("span_id", ""),
+            attrs={"request_id": r.request_id, "reason": reason,
+                   "model": r.model or "", **payload}))
+        self.metrics["timeline_dumps"] += 1
+        self._breach_samples.append({
+            "request_id": r.request_id, "reason": reason, "ts": now,
+            "model": r.model or "", "n_events": payload["n_events"],
+            "overflowed": payload["overflowed"],
+            "events": payload["events"][-16:]})
+        return True
+
+    def breach_samples(self) -> list[dict]:
+        """The most recent breach dumps (at most 8), newest last."""
+        return list(self._breach_samples)
+
+    def _record_decode_span(self, r: Request) -> None:
+        """First token to the end of the stream, and for a request that
+        speculation touched an ``llm.speculate`` span of its drafts."""
+        now = time.time()
+        start = r.first_token_wall or now
+        self._record_span(r, "llm.decode", start, now,
+                          generated_tokens=len(r.generated),
+                          finish_reason=r.finish_reason)
+        if r.spec_drafted or r.spec_rollbacks:
+            self._record_span(r, "llm.speculate", start, now,
+                              drafted_tokens=r.spec_drafted,
+                              accepted_tokens=r.spec_accepted,
+                              rollbacks=r.spec_rollbacks)
 
     def _decode_batch_args(self, active: dict):
         """Fill the host mirrors for one decode burst over ``active`` and
@@ -1074,6 +1288,8 @@ class InferenceEngine:
                 emitted += 1
             dr = drafted.get(slot, 0)
             accepted = min(max(0, emitted - 1), dr)
+            if dr:
+                r.timeline.add(loop_recorder.EV_SPEC_ROUND, accepted)
             r.spec_drafted += dr
             r.spec_accepted += accepted
             m = self.metrics
@@ -1153,6 +1369,7 @@ class InferenceEngine:
             r = p["request"]
             self.metrics["prefill_chunks"] += 1
             r.prefill_pos = p["start_pos"] + p["take"]
+            r.timeline.add(loop_recorder.EV_PREFILL_CHUNK, p["take"])
             if not p["final"]:
                 continue
             with self._lock:
@@ -1172,6 +1389,9 @@ class InferenceEngine:
 
     def _emit(self, r: Request, token: int) -> dict:
         r.generated.append(token)
+        # One event a token: the gaps between them are the inter-token
+        # latencies in a dump.
+        r.timeline.add(loop_recorder.EV_TOKEN, len(r.generated))
         if (r.eos_id is not None and token == r.eos_id) or token in r.stop_ids:
             r.done, r.finish_reason = True, "stop"
         elif len(r.generated) >= r.max_new_tokens:
@@ -1182,6 +1402,7 @@ class InferenceEngine:
         if r.done:
             with self._lock:
                 self._retire_locked(r)  # idempotent if cancel() beat us
+            self._record_decode_span(r)
         return {"request_id": r.request_id, "token": token, "done": r.done,
                 "finish_reason": r.finish_reason}
 

@@ -24,9 +24,6 @@ Cuts against the JAX package:
     with a ``scheme://`` raises ``ValueError`` (the JAX package reads
     URIs through ``pyarrow.fs``). The files are the same format both
     ways;
-  * the ``llm.adapter_load`` tracing span waits for the port's tracing.
-    The load time still reaches ``AdapterPool.commit_load``, so
-    ``stats()["avg_load_ms"]`` reports it;
   * ``LoRAServingConfig`` has no ``max_loaded_adapters`` (a residency
     cap below ``max_loras``): only the tenant serve layer sets it, and
     it comes with that layer. Every stack slot can hold an adapter.
@@ -42,6 +39,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..observability import tracing
 from .tenancy import AdapterPool
 
 PROJS = ("wq", "wk", "wv", "wo")
@@ -199,15 +197,16 @@ class LoRAManager:
     def acquire(self, adapter_id: str | None) -> int:
         """Slot for a request's adapter (0 = base), pinned for the
         request's lifetime; pair with ``release``. A cold adapter loads
-        (file read and device copy); ``AdapterCapacityError`` propagates
-        so admission can defer rather than fail."""
+        (file read and device copy) and records an ``llm.adapter_load``
+        span under the current trace context; ``AdapterCapacityError``
+        propagates so admission can defer rather than fail."""
         if not adapter_id:
             return 0
         slot = self._pool.lookup(adapter_id)
         if slot is not None:
             return slot
         slot = self._pool.begin_load(adapter_id)   # may raise capacity
-        t0 = time.perf_counter()
+        t0 = time.time()
         try:
             arrays = self._pad(load_adapter_arrays(
                 self.resolve_path(adapter_id)))
@@ -215,8 +214,14 @@ class LoRAManager:
         except Exception:
             self._pool.abort_load(adapter_id)
             raise
-        self._pool.commit_load(adapter_id,
-                               (time.perf_counter() - t0) * 1000.0)
+        load_ms = (time.time() - t0) * 1000.0
+        self._pool.commit_load(adapter_id, load_ms)
+        wire = tracing.current_wire() or {}
+        tracing.record_span(tracing.make_span(
+            "llm.adapter_load", "llm", t0, t0 + load_ms / 1000.0,
+            wire.get("trace_id", ""), wire.get("span_id", ""),
+            attrs={"adapter": adapter_id, "slot": slot,
+                   "load_ms": round(load_ms, 3)}))
         return slot
 
     def release(self, slot: int) -> None:
