@@ -156,7 +156,25 @@ Phases, each printing JSON lines:
                 unchanged, demotion refused while busy, the first request
                 promoting, a broadcast to 2 loopback readers (MB/s, both
                 fingerprints equal) and ``install_weights`` into a demoted
-                engine.
+                engine;
+  serve_app     the LLM app through the port's runtime and Serve:
+                ``init()`` on the card (the node reports its cards as
+                ``GPU``), ``serve.run(build_llm_app("llama3-1b", ...))`` in
+                the ``serve`` geometry with ``num_gpus=1``, so the replica
+                is a worker process leased the card; ``/v1/models`` (and
+                its round trip alone, the HTTP hop), 8 concurrent streamed
+                ``/v1/completions`` of the ``serve`` traffic as text (two
+                sharing a 2,000-byte prefix, 64 greedy tokens each): the
+                client-side TTFT and output tokens per second beside the
+                ``serve`` phase's, and the replica's own paged launches
+                (``engine_metrics()["port"]``, 16 split a decode step, 0
+                single) in a process that is not this one and runs on the
+                card; then a plain and a streamed completion of one prompt
+                (equal text and count) and a chat completion. The f32
+                ``debug-128`` app over HTTP must answer what an in-process
+                ``LLMDeployment`` on the card answers, and after
+                ``serve.shutdown()`` and ``shutdown()`` no worker process
+                may be left.
 
 Then a JSON line of the kernels, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -167,6 +185,7 @@ the repository checkout beside it.
 from __future__ import annotations
 
 import dataclasses
+import http.client
 import json
 import math
 import os
@@ -1071,10 +1090,10 @@ def _drain(eng: InferenceEngine, reqs: list) -> None:
         eng.step()
 
 
-def phase_serve(seed: int = 0) -> dict:
-    """Returns the paged kernels' launch counts over the served run:
-    ``n_layers`` a decode step for the kernel ``paged_route`` names for
-    bf16, 0 for the other."""
+def phase_serve(seed: int = 0) -> tuple[dict, dict]:
+    """Returns the paged kernels' launch counts over the served run
+    (``n_layers`` a decode step for the kernel ``paged_route`` names for
+    bf16, 0 for the other) and the run's TTFT and throughput."""
     cfg = PRESETS["llama3-1b"]
     rng = np.random.default_rng(seed)
     torch.cuda.reset_peak_memory_stats()
@@ -1134,13 +1153,14 @@ def phase_serve(seed: int = 0) -> dict:
     ttft = [(r.first_token_at - r.arrived_at) * 1e3 for r in reqs]
     first_tok = min(r.first_token_at for r in reqs)
     n_tokens = sum(len(r.generated) for r in reqs)
+    stats = {"ttft_p50_ms": float(np.median(ttft)),
+             "ttft_max_ms": float(max(ttft)), "wall_s": t_end - t0,
+             # tokens after each request's first, over the time from the
+             # first first-token to the end of the run
+             "decode_tok_per_s": (n_tokens - len(reqs)) / (t_end - first_tok),
+             "output_tok_per_s": n_tokens / (t_end - t0)}
     emit("serve", preset="llama3-1b", requests=len(reqs),
-         output_tokens=n_tokens, wall_s=t_end - t0, setup_s=setup_s,
-         ttft_p50_ms=float(np.median(ttft)), ttft_max_ms=float(max(ttft)),
-         # tokens after each request's first, over the time from the first
-         # first-token to the end of the run
-         decode_tok_per_s=(n_tokens - len(reqs)) / (t_end - first_tok),
-         output_tok_per_s=n_tokens / (t_end - t0),
+         output_tokens=n_tokens, setup_s=setup_s, **stats,
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          kernel_launches=launches, expected_launches=expected,
          decode_steps=m["decode_steps"],
@@ -1151,7 +1171,7 @@ def phase_serve(seed: int = 0) -> dict:
     profile_decode_dispatch(eng, rng, cfg)
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, stats
 
 
 def profile_decode_dispatch(eng: InferenceEngine, rng, cfg) -> None:
@@ -2744,6 +2764,275 @@ def phase_weights(seed: int = 0) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- serve_app
+# The app's replica serves the `serve` geometry at llama3-1b; the f32 parity
+# app is the smallest preset whose vocabulary holds the byte tokenizer.
+APP_PRESET = "llama3-1b"
+APP_DEVICE = None                 # the replica's engine: the card
+APP_NEW = 64
+APP_PARITY_PRESET = "debug-128"
+APP_PARITY_GEOMETRY = dict(max_slots=4, max_len=256, page_size=16,
+                           prefill_chunk_size=64, decode_steps_per_dispatch=4)
+APP_START_TIMEOUT_S = 300.0
+WORKER_MODULES = ("ray_tpu_torch.core.worker_main",
+                  "ray_tpu_torch.core.worker_zygote")
+# engine_metrics()["port"]["kernel_launches"] names kernels by CUDA source
+APP_KERNEL_KEYS = {"paged_decode_attention_split": "paged_decode_split",
+                   "paged_decode_attention_single": "paged_decode"}
+
+
+def _app_prompts(rng) -> dict:
+    """The serve phase's traffic as text: six prompts of 16-200 bytes and
+    two sharing a 2,000-byte prefix (lowercase letters and spaces, one
+    token a byte)."""
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+
+    def text(n):
+        return bytes(rng.choice(letters, n)).decode()
+
+    prompts = {f"short{i}": text(n)
+               for i, n in enumerate((16, 40, 77, 120, 160, 200))}
+    shared = text(2000)
+    prompts["shared0"] = shared + text(24)
+    prompts["shared1"] = shared + text(40)
+    return prompts
+
+
+def _http(addr: str, method: str, path: str, body: dict | None = None):
+    """One HTTP exchange with the app; returns the parsed JSON body."""
+    host, port = addr.rsplit("/", 1)[-1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"{method} {path}: HTTP {resp.status} {data!r}")
+    return json.loads(data)
+
+
+def _http_stream(addr: str, body: dict) -> dict:
+    """One ``"stream": true`` completion over HTTP, read event by event:
+    the client-side TTFT (send to the first token's event), the wall
+    time, the token events' text and the finish reason."""
+    host, port = addr.rsplit("/", 1)[-1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    t0 = time.perf_counter()
+    ttft = None
+    chunks = []
+    try:
+        conn.request("POST", "/v1/completions",
+                     body=json.dumps({**body, "stream": True}),
+                     headers={"content-type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"stream: HTTP {resp.status} {resp.read()!r}")
+        for raw in resp:  # line by line through the chunked body
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                break
+            if ttft is None:
+                ttft = time.perf_counter() - t0
+            chunks.append(json.loads(line[len("data: "):]))
+    finally:
+        conn.close()
+    if not chunks:
+        raise AssertionError(f"stream: no token events for {body}")
+    choices = [c["choices"][0] for c in chunks]
+    return {"ttft_ms": ttft * 1e3, "wall_s": time.perf_counter() - t0,
+            "tokens": len(chunks), "text": "".join(c["text"] for c in choices),
+            "finish_reason": choices[-1]["finish_reason"]}
+
+
+def _port_row(handle) -> dict:
+    """The replica's ``engine_metrics()``: its engine counters and the
+    port's own row (process, device, this process's paged launches)."""
+    return handle.options(method_name="engine_metrics").remote().result(
+        timeout=120)
+
+
+def _worker_pids() -> list:
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().decode(errors="replace")
+        except OSError:
+            continue
+        if any(m in cmd for m in WORKER_MODULES):
+            pids.append(int(entry))
+    return pids
+
+
+def _strip(body: dict) -> dict:
+    return {k: v for k, v in body.items() if k not in ("id", "created")}
+
+
+def phase_serve_app(serve_stats: dict, seed: int = 0) -> dict:
+    """The LLM app through the port's runtime and Serve: a llama3-1b
+    replica in a worker process leased the card, 8 concurrent streamed
+    completions over HTTP, then a plain and a streamed completion of one
+    prompt, a chat completion, and the f32 parity app. Returns the paged
+    kernels' launches counted in the replica over the 8 requests."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMDeployment, build_llm_app
+
+    cfg = PRESETS[APP_PRESET]
+    rng = np.random.default_rng(seed)
+    # The earlier phases' cached blocks go back to the card before the
+    # replica allocates its weights and page pool in its own process.
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rt.init()
+    try:
+        gpus = rt.cluster_resources().get("GPU", 0.0)
+        if gpus != float(torch.cuda.device_count()) or gpus < 1:
+            raise AssertionError(f"node reports GPU {gpus}, the host has "
+                                 f"{torch.cuda.device_count()} cards")
+        init_s = time.perf_counter() - t0
+        serve.run(build_llm_app(
+            APP_PRESET, max_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+            prefill_chunk_size=CHUNK, decode_steps_per_dispatch=STEPS,
+            ray_actor_options={"num_gpus": 1}, device=APP_DEVICE),
+            name="llm", timeout_s=APP_START_TIMEOUT_S)
+        start_s = time.perf_counter() - t0 - init_s
+        addr = serve.http_address()
+        handle = serve.get_app_handle("llm")
+        models = _http(addr, "GET", "/v1/models")
+        if models["data"][0]["id"] != APP_PRESET:
+            raise AssertionError(f"/v1/models: {models}")
+        # the HTTP hop alone: proxy, router, replica and back, no engine
+        hop_ms = []
+        for _ in range(20):
+            t = time.perf_counter()
+            _http(addr, "GET", "/v1/models")
+            hop_ms.append((time.perf_counter() - t) * 1e3)
+        before = _port_row(handle)
+        replica = before["port"]
+        if replica["pid"] == os.getpid():
+            raise AssertionError("the replica runs in the driver's process")
+        if APP_DEVICE is None and not replica["device"].startswith("cuda"):
+            raise AssertionError(f"replica engine on {replica['device']}")
+
+        prompts = _app_prompts(rng)
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            runs = dict(zip(prompts, pool.map(
+                lambda p: _http_stream(addr, {"prompt": p,
+                                              "max_tokens": APP_NEW,
+                                              "temperature": 0.0}),
+                prompts.values())))
+        wall = time.perf_counter() - t1
+        after = _port_row(handle)
+        steps = after["decode_steps"] - before["decode_steps"]
+        launches = {
+            name: (after["port"]["kernel_launches"][key]
+                   - before["port"]["kernel_launches"][key])
+            for name, key in APP_KERNEL_KEYS.items()}
+        on_route = paged_kernel_of(cfg.dtype)
+        expected = {name: cfg.n_layers * steps if name == on_route else 0
+                    for name in APP_KERNEL_KEYS}
+        if launches != expected or steps <= 0:
+            raise AssertionError(f"replica paged launches {launches} != "
+                                 f"{expected} ({cfg.n_layers} layers x "
+                                 f"{steps} decode steps)")
+        for name, r in runs.items():
+            if not (r["tokens"] == APP_NEW or r["finish_reason"] == "stop"):
+                raise AssertionError(f"{name}: {r['tokens']} tokens, "
+                                     f"finish {r['finish_reason']}")
+        ttft = [r["ttft_ms"] for r in runs.values()]
+        n_tokens = sum(r["tokens"] for r in runs.values())
+
+        # one prompt plain and streamed: the same text and token count
+        body = {"prompt": prompts["short2"], "max_tokens": APP_NEW}
+        plain = _http(addr, "POST", "/v1/completions", body)
+        streamed = _http_stream(addr, body)
+        if (streamed["text"], streamed["tokens"]) != (
+                plain["choices"][0]["text"],
+                plain["usage"]["completion_tokens"]):
+            raise AssertionError(f"streamed {streamed} != plain {plain}")
+        chat = _http(addr, "POST", "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": prompts["short1"]}],
+            "max_tokens": 16})
+        if chat["object"] != "chat.completion" or \
+                chat["usage"]["completion_tokens"] <= 0:
+            raise AssertionError(f"chat: {chat}")
+        emit("serve_app", preset=APP_PRESET, requests=len(runs),
+             output_tokens=n_tokens, wall_s=wall, init_s=init_s,
+             app_start_s=start_s,
+             ttft_p50_ms=float(np.median(ttft)), ttft_max_ms=float(max(ttft)),
+             ttft_ms={k: r["ttft_ms"] for k, r in runs.items()},
+             output_tok_per_s=n_tokens / wall,
+             http_hop_p50_ms=float(np.median(hop_ms)),
+             in_process_serve={k: serve_stats[k] for k in (
+                 "ttft_p50_ms", "ttft_max_ms", "output_tok_per_s",
+                 "decode_tok_per_s", "wall_s")},
+             replica_pid=replica["pid"], driver_pid=os.getpid(),
+             replica_device=replica["device"],
+             replica_device_name=replica["device_name"],
+             kernel_launches=launches, expected_launches=expected,
+             decode_steps=steps,
+             decode_dispatches=(after["decode_dispatches"]
+                                - before["decode_dispatches"]),
+             prefix_hit_pages=(after["prefix_hit_pages"]
+                               - before["prefix_hit_pages"]),
+             stream_equals_plain=True,
+             chat_completion_tokens=chat["usage"]["completion_tokens"])
+        serve.delete("llm")
+
+        # f32 parity: the app over HTTP against a deployment in this process
+        cfg32 = dataclasses.replace(PRESETS[APP_PARITY_PRESET],
+                                    dtype=torch.float32)
+        serve.run(build_llm_app(
+            cfg32, model_id=APP_PARITY_PRESET,
+            ray_actor_options={"num_gpus": 1}, device=APP_DEVICE,
+            **APP_PARITY_GEOMETRY),
+            name="llm_f32", timeout_s=APP_START_TIMEOUT_S)
+        local = LLMDeployment(cfg32, model_id=APP_PARITY_PRESET,
+                              device=DEVICE, **APP_PARITY_GEOMETRY)
+        try:
+            compared = 0
+            for prompt in ("The quick brown fox", prompts["short3"]):
+                body = {"prompt": prompt, "max_tokens": 24}
+                got = _strip(_http(addr, "POST", "/v1/completions", body))
+                want = _strip(local.completions(dict(body)))
+                if got != want:
+                    raise AssertionError(f"f32 app {got} != in-process "
+                                         f"{want}")
+                compared += 1
+            f32_port = _port_row(
+                serve.get_app_handle("llm_f32"))["port"]
+        finally:
+            local.close()
+        emit("serve_app_parity", preset=APP_PARITY_PRESET, dtype="float32",
+             prompts=compared, equal=True,
+             replica_pid=f32_port["pid"],
+             replica_kernel_launches=f32_port["kernel_launches"])
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    deadline = time.monotonic() + 20.0
+    while _worker_pids() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _worker_pids()
+    if left:
+        raise AssertionError(f"worker processes left after shutdown: {left}")
+    emit("serve_app_shutdown", workers_left=0,
+         total_s=time.perf_counter() - t0)
+    return launches
+
+
 def _build_all() -> None:
     """One nvcc per CUDA source, all started together."""
     # one library per source: flash_bwd.cu holds the simt dQ and dK/dV
@@ -2787,7 +3076,7 @@ def main() -> int:
     phase_lm_head_grad()
     train_launches = phase_train()
     parity_launches = phase_train_parity()
-    launches = phase_serve()
+    launches, serve_stats = phase_serve()
     deadline_launches = phase_deadline()
     paged_parity_launches = phase_parity()
     spec_parity_launches = phase_spec_parity()
@@ -2797,6 +3086,7 @@ def main() -> int:
     mig_parity_launches = phase_migrate_parity()
     mig_launches = phase_migrate()
     weights_launches = phase_weights()
+    app_launches = phase_serve_app(serve_stats)
     kernels = []
     for name, pk in PAGED_KERNELS.items():
         kernels.append({
@@ -2822,6 +3112,9 @@ def main() -> int:
             "launches_migrate": mig_launches[name],
             "launches_weights": weights_launches[name],
             "launches_f32_migrate_parity": mig_parity_launches[name],
+            # the LLM app's replica, a worker process leased the card,
+            # over the 8 HTTP requests (`serve_app`, bf16)
+            "launches_serve_app": app_launches[name],
             "max_abs_err": paged_err[name],
             "max_abs_err_verify_cases": paged_err_verify[name],
             **times["uniform"][name],

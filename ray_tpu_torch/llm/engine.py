@@ -84,10 +84,6 @@ from .tenancy import AdapterCapacityError
 
 logger = logging.getLogger(__name__)
 
-# Extra free-page headroom admission keeps on top of each request's
-# worst-case reservation (the JAX package's serve default).
-ADMISSION_WATERMARK_PAGES = 0
-
 
 @dataclass
 class Request:
@@ -386,6 +382,7 @@ class InferenceEngine:
         lora_config=None,
         host_kv_cache_pages: int = 0,
         device=None,
+        admission_watermark_pages: int | None = None,
     ):
         self.config = PRESETS[config] if isinstance(config, str) else config
         self.max_slots = max_slots
@@ -441,6 +438,15 @@ class InferenceEngine:
             self.allocator.free.remove(s)
         self._free_slots = list(range(max_slots))
         self.max_queued_requests = max(0, max_queued_requests)
+        # Extra free-page headroom admission keeps on top of each request's
+        # worst-case reservation (room for in-flight KV imports); the
+        # runtime config's serve default when not given.
+        if admission_watermark_pages is None:
+            from ..core.config import get_config
+
+            admission_watermark_pages = \
+                get_config().serve_admission_watermark_pages
+        self.admission_watermark_pages = max(0, admission_watermark_pages)
         self._active: dict[int, Request] = {}       # decoding
         self._prefilling: deque[Request] = deque()  # admitted, chunks pending
         # Prefilled requests awaiting their batched first-token sample.
@@ -843,7 +849,7 @@ class InferenceEngine:
                 # A partial hit keeps the reservation: fresh[0] becomes the
                 # reserved COW fork target.
                 if self.allocator.available() < \
-                        n_pages - len(hits) + ADMISSION_WATERMARK_PAGES:
+                        n_pages - len(hits) + self.admission_watermark_pages:
                     self._unpin_hits_locked(hits, partial)
                     self.metrics["admission_rejects"] += 1
                     break  # head-of-line: wait for pages to free

@@ -23,10 +23,7 @@ Cuts against the JAX package:
     <= max_rank) read and written with numpy on local paths only; a path
     with a ``scheme://`` raises ``ValueError`` (the JAX package reads
     URIs through ``pyarrow.fs``). The files are the same format both
-    ways;
-  * ``LoRAServingConfig`` has no ``max_loaded_adapters`` (a residency
-    cap below ``max_loras``): only the tenant serve layer sets it, and
-    it comes with that layer. Every stack slot can hold an adapter.
+    ways.
 """
 
 from __future__ import annotations
@@ -52,6 +49,11 @@ class LoRAServingConfig:
     max_loras: int = 4          # stack slots (excluding the identity slot)
     max_rank: int = 16
     dynamic_lora_loading_path: str | None = None  # directory of adapters
+    # Residency cap: at most this many adapters occupy stack slots at once
+    # (0 = max_loras). The stack is allocated for max_loras either way;
+    # the cap bounds how many the LRU keeps warm (the tenant serve layer
+    # sets it from ``TenancyConfig.max_loaded_adapters``).
+    max_loaded_adapters: int = 0
 
 
 def proj_dims(c) -> dict:
@@ -176,7 +178,8 @@ class LoRAManager:
         self._config = config
         self._serving = serving
         self._install = install_fn
-        self._pool = AdapterPool(capacity=serving.max_loras)
+        self._pool = AdapterPool(capacity=serving.max_loras,
+                                 max_resident=serving.max_loaded_adapters)
         # An explicit eviction zeroes the device slot at once, so a slot
         # that is reused never keeps stale rows. The hook holds no
         # reference to the manager: a bound method would make a cycle

@@ -1,17 +1,23 @@
 """Trace-context propagation and span recording.
 
-The port of ``ray_tpu/observability/tracing.py``. A span is a plain dict::
+A span is a plain dict (msgpack-encodable so it crosses the RPC layer
+untouched)::
 
     {"trace_id", "span_id", "parent_id", "name", "kind",
      "start", "end",              # wall-clock seconds (time.time())
+     "worker_id", "node_id",      # filled at GCS ingest from the event
      "attrs": {...}}
 
 The active context is thread-local: it is installed explicitly at every
-thread hop (``bind``) or around a block (``use_context``, ``span``).
+thread hop (``bind``) and by the executor when it runs a task whose
+``TaskSpec`` carries trace fields — exactly the places the reference
+threads OpenTelemetry context through ``_raylet.pyx``.
 
-Finished spans go to a bounded process-local buffer readable through
-``local_spans()``; the port has no runtime yet to ship them to. Tracing is
-always on, and recording never raises into the traced operation.
+Recording goes through the worker's ``TaskEventBuffer`` (status
+``SPAN``) so spans share the batched GCS flush with task status events;
+processes without a core worker (standalone engine in tests, the GCS
+itself) fall back to a bounded process-local buffer readable via
+``local_spans()``.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import random
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 TRACE_HEADER = "x-raytpu-trace"
 
@@ -33,9 +39,12 @@ _local_spans: list[dict] = []
 _LOCAL_MAX = 4096
 
 
-# One trace id and one span id per request: a process-seeded Random gives
-# the bits tracing needs without an os.urandom call each (a forked child
-# reseeds, so it never replays its parent's ids).
+# Id generation is ON the task-submit hot path (one trace id + one span
+# id per submit): uuid4 costs an os.urandom syscall each — ~60% of a
+# 100k-no-op submit loop's wall time before PR 6. A process-seeded
+# Random gives the same 128/64 bits of collision resistance for tracing
+# purposes at ~30x less cost (os.urandom seeds it once; forked workers
+# reseed via the pid mix so children never replay the parent's stream).
 _id_rng = random.Random()
 _id_rng.seed(int.from_bytes(os.urandom(16), "big") ^ os.getpid())
 _id_pid = os.getpid()
@@ -45,7 +54,7 @@ _id_lock = threading.Lock()
 def _id_hex(bits: int) -> str:
     global _id_pid
     with _id_lock:
-        if os.getpid() != _id_pid:
+        if os.getpid() != _id_pid:  # forked child: never replay the parent
             _id_rng.seed(int.from_bytes(os.urandom(16), "big") ^ os.getpid())
             _id_pid = os.getpid()
         return f"{_id_rng.getrandbits(bits):0{bits // 4}x}"
@@ -100,7 +109,7 @@ def use_context(ctx: TraceContext | None):
 
 def bind(ctx: TraceContext | None, fn: Callable, *args, **kwargs) -> Callable:
     """Wrap ``fn`` so it runs under ``ctx`` on whatever thread executes
-    it (thread-locals do not survive a hop to another thread)."""
+    it (thread-locals do not survive ``run_in_executor`` hops)."""
 
     def _wrapped():
         prev = set_current(ctx)
@@ -139,12 +148,28 @@ def make_span(name: str, kind: str, start: float, end: float,
     }
 
 
+def _tracing_enabled() -> bool:
+    try:
+        from ..core.config import get_config
+
+        return bool(get_config().enable_tracing)
+    except Exception:
+        return True
+
+
 def record_span(span_dict: dict) -> None:
-    """Buffer one finished span (a span without a trace id is dropped).
-    The buffer keeps the newest ``_LOCAL_MAX``: when full, its oldest
-    quarter goes."""
-    if not span_dict.get("trace_id"):
+    """Buffer one finished span. Never raises — tracing must not be able
+    to fail the traced operation."""
+    if not span_dict.get("trace_id") or not _tracing_enabled():
         return
+    try:
+        from ..core.worker import _global_worker
+
+        if _global_worker is not None:
+            _global_worker.task_events.record_span(span_dict)
+            return
+    except Exception:
+        pass
     with _local_lock:
         if len(_local_spans) >= _LOCAL_MAX:
             del _local_spans[: _LOCAL_MAX // 4]
@@ -152,8 +177,8 @@ def record_span(span_dict: dict) -> None:
 
 
 def local_spans(trace_id: str | None = None) -> list[dict]:
-    """Spans recorded in this process, oldest first; only ``trace_id``'s
-    when given."""
+    """Spans recorded in this process while no core worker was connected
+    (standalone engines, unit tests)."""
     with _local_lock:
         out = list(_local_spans)
     if trace_id:
@@ -167,7 +192,8 @@ def span(name: str, kind: str = "app", attrs: dict | None = None,
     """Record a span around a code block. Opens a child of the current
     context (or a fresh root trace when there is none or ``root=True``)
     and installs itself as the current context for the duration, so
-    anything started inside (an engine request, say) chains under it."""
+    anything submitted inside — tasks, actor calls, engine requests —
+    chains under it."""
     parent = None if root else current()
     if parent is None:
         ctx = TraceContext(new_trace_id(), new_span_id())

@@ -312,7 +312,8 @@ def test_import_loads_no_jax_and_no_ray_tpu():
             "ray_tpu_torch.llm.lora, ray_tpu_torch.llm.tenancy, "
             "ray_tpu_torch.ops.paged_attention, ray_tpu_torch._cuda, "
             "ray_tpu_torch._device, "
-            "ray_tpu_torch.ops.attention, ray_tpu_torch.models.llama\n"
+            "ray_tpu_torch.ops.attention, ray_tpu_torch.models.llama, "
+            "ray_tpu_torch.serve, ray_tpu_torch.llm.serving\n"
             "from ray_tpu_torch.ops.attention import (flash_route, "
             "flash_forward_sm90_cuda, flash_dq_sm90_cuda, "
             "flash_dkdv_sm90_cuda)\n"
