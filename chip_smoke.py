@@ -51,6 +51,30 @@ Phases, each printing JSON lines:
                 lm_head fix against the parent's arithmetic, in turns;
   train_profile one more step under torch.profiler: the card's idle share
                 and where its time goes, per flash kernel;
+  train_remat   the remat policies on the same params (learning rate 0):
+                one step of "full" for its peak allocation, then 3 steps
+                each of "dots" and "attn" in turns (dots, attn, attn,
+                dots): step time, peak allocation and the flash launches a
+                step (16 forward under "attn", 32 under "full" and "dots",
+                whose backward runs the forward again; 16 dQ and dK/dV);
+  train_fit     the train leg through the Train and Data libraries (the
+                port's bench.py::run_framework): ``init()`` on the card,
+                ``data.from_numpy`` of (2 + 5 + 2) x 8 rows of 2,048
+                tokens from the seed, and ``TorchTrainer.fit`` with one
+                worker leased the card (``ScalingConfig(use_gpu=True)``):
+                in that process the train_fn builds llama3-1b (remat
+                "attn"), takes 2 warm-up, 5 timed and 2 more SGD steps on
+                ``to_device_batches`` of its shard, and reports the last
+                two steps' params as ``state=`` (async checkpoints). The
+                worker must be another process on the card, with 16
+                launches a step of each sm90 flash kernel and 0 of the
+                simt ones, finite losses, and its last commit registered
+                on the GCS; tokens per second, step time, each save's
+                blocking milliseconds and its commit's seconds are printed
+                beside the ``train`` phase's. A second fit resumes from
+                that checkpoint and its worker must load params of the
+                fingerprint the first worker took before it saved; no
+                worker process may be left after ``shutdown()``;
   train_parity  f32 loss and every gradient of the kernel path
                 (attn_impl="flash", the simt kernels) equal the plain
                 path's ("reference") at llama3-1b widths and 2 layers, with
@@ -817,10 +841,11 @@ def _sgd_step(params: dict, batch: dict, cfg, lr: float) -> torch.Tensor:
     return loss.detach()
 
 
-def phase_train(seed: int = 0) -> dict:
-    """Returns each flash kernel's launch count over the trained steps:
-    ``n_layers`` a step for the kernels ``flash_route`` names for bf16, 0
-    for the others."""
+def phase_train(seed: int = 0) -> tuple[dict, dict]:
+    """Returns each flash kernel's launch count over the trained steps
+    (``n_layers`` a step for the kernels ``flash_route`` names for bf16, 0
+    for the others) and the run's step time, tokens per second and peak
+    allocation."""
     device = resolve_device(None)
     cfg = dataclasses.replace(PRESETS["llama3-1b"], remat_policy="attn")
     torch.cuda.reset_peak_memory_stats()
@@ -871,11 +896,116 @@ def phase_train(seed: int = 0) -> dict:
         raise AssertionError(f"flash launches {launches} != {expected} "
                              f"({cfg.n_layers} layers x {steps} steps on the "
                              f"{cfg.dtype} route)")
+    stats = {"tokens_per_sec": tokens_per_sec,
+             "median_step_s": float(np.median(step_s)),
+             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     profile_train_step(params, batch, cfg)
     time_lm_head_fix(params, batch, cfg)
+    time_remat_policies(params, batch, cfg)
     del params, batch
     torch.cuda.empty_cache()
-    return launches
+    return launches, stats
+
+
+# Each policy's flash launches a step per layer: "attn" keeps the attention
+# output, "full" and "dots" run the forward again in the backward.
+REMAT_FWD_PER_LAYER = {"attn": 1, "dots": 2, "full": 2}
+# "dots" against "attn" on one step's gradients in bf16 (relative Frobenius
+# error of each param leaf): a dropped or doubled term of the block's
+# backward moves a leaf by tens of percent.
+REMAT_GRAD_RTOL = 2e-2
+
+
+def _named_leaves(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k: t for key, v in tree.items()
+                for k, t in _named_leaves(v, f"{prefix}{key}/").items()}
+    return {prefix.rstrip("/"): tree}
+
+
+def _step_grads(params: dict, batch: dict, cfg) -> tuple[float, dict]:
+    """One step's loss and the gradient of every param leaf, by name; the
+    params' ``.grad`` are cleared again."""
+    loss = loss_fn(params, batch, cfg, chunk_tokens=TRAIN_CHUNK)
+    loss.backward()
+    grads = {}
+    for name, p in _named_leaves(params).items():
+        grads[name], p.grad = p.grad, None
+    return loss.item(), grads
+
+
+def check_dots_grads(params: dict, batch: dict, cfg) -> None:
+    """One step's loss and gradients under "dots" against "attn" on the
+    same params and batch, through the sm90 flash kernels in bf16: the
+    losses must be equal (the policies change only what the backward
+    keeps) and each leaf's gradient within ``REMAT_GRAD_RTOL``. "full"
+    against "attn" is shown beside it, two policies whose backward is
+    PyTorch's own."""
+    losses, grads = {}, {}
+    for policy in ("attn", "dots", "full"):
+        losses[policy], grads[policy] = _step_grads(
+            params, batch, dataclasses.replace(cfg, remat_policy=policy))
+    errs = {policy: {
+        name: (torch.linalg.norm((g - grads["attn"][name]).float())
+               / torch.linalg.norm(grads["attn"][name].float())).item()
+        for name, g in grads[policy].items()} for policy in ("dots", "full")}
+    del grads
+    torch.cuda.empty_cache()
+    emit("train_remat_grads", what="one llama3-1b step, 8 x 2048, bf16: "
+         "loss and per-leaf gradient relative error against attn's",
+         losses=losses, grad_rel_err_dots_vs_attn=errs["dots"],
+         grad_rel_err_full_vs_attn=errs["full"], grad_rtol=REMAT_GRAD_RTOL)
+    if losses["dots"] != losses["attn"]:
+        raise AssertionError(f"loss under dots {losses['dots']} != under "
+                             f"attn {losses['attn']}")
+    bad = {k: e for k, e in errs["dots"].items() if not e <= REMAT_GRAD_RTOL}
+    if bad:
+        raise AssertionError(f"dots gradients off attn's beyond "
+                             f"{REMAT_GRAD_RTOL}: {bad}")
+
+
+def time_remat_policies(params: dict, batch: dict, cfg, steps: int = 3) -> None:
+    """Step time and peak allocation of the remat policies on the same
+    params (learning rate 0, so every step sees the same weights): one
+    step of "full" for its peak, then 3 steps each of "dots" and "attn" in
+    turns (dots, attn, attn, dots), with the flash launches read around
+    each turn; then one step's gradients of "dots" held against "attn"'s
+    (``check_dots_grads``)."""
+    times = {"dots": [], "attn": []}
+    peaks, launches = {}, {}
+    for policy in ("full", "dots", "attn", "attn", "dots"):
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        n = 1 if policy == "full" else steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_launches()
+        for _ in range(n):
+            t0 = time.perf_counter()
+            loss = _sgd_step(params, batch, c, 0.0).item()
+            if policy != "full":
+                times[policy].append(time.perf_counter() - t0)
+        if not math.isfinite(loss):
+            raise AssertionError(f"{policy}: non-finite loss {loss}")
+        peaks[policy] = max(peaks.get(policy, 0),
+                            torch.cuda.max_memory_allocated())
+        got = {k: v / n for k, v in flash_launches().items()}
+        want = {flash_kernel_of(step, cfg.dtype): cfg.n_layers * (
+            REMAT_FWD_PER_LAYER[policy] if step == "fwd" else 1)
+            for step in ("fwd", "dq", "dkdv")}
+        want = {k: want.get(k, 0) for k in FLASH_KERNELS}
+        if got != want:
+            raise AssertionError(f"{policy}: flash launches a step {got} "
+                                 f"!= {want}")
+        launches[policy] = got
+    dots, attn = (float(np.median(times[k])) for k in ("dots", "attn"))
+    check_dots_grads(params, batch, cfg)
+    emit("train_remat", what="llama3-1b train step, 8 x 2048, sgd at lr 0 "
+         "(the same params every step), remat policies in turns",
+         step_s_dots=times["dots"], step_s_attn=times["attn"],
+         median_step_s_dots=dots, median_step_s_attn=attn,
+         dots_over_attn=dots / attn,
+         max_memory_allocated_bytes=peaks,
+         flash_launches_per_step=launches)
 
 
 def _parent_lm_head_grads(g, h, w):
@@ -909,6 +1039,277 @@ def time_lm_head_fix(params: dict, batch: dict, cfg, steps: int = 3) -> None:
          "parent's g rounded to bf16", step_s_fix=times["fix"],
          step_s_parent=times["parent"], median_step_s_fix=fix,
          median_step_s_parent=parent, cost_ms=(fix - parent) * 1e3)
+
+
+# ------------------------------------------------------------- train_fit
+# The Train library's run (bench.py::run_framework): 2 warm-up and 5 timed
+# steps, then 2 steps that report the state for an async checkpoint each.
+FIT_CKPT_STEPS = 2
+FIT_RUN = "train_fit"
+FIT_TIMEOUT_S = 600.0
+
+
+def _kernel_attrs() -> dict:
+    """Each of ``FLASH_KERNELS``' kernels by its attribute name in
+    ``ray_tpu_torch.ops.attention``, through which the train worker reads
+    its own process's launch counts."""
+    from ray_tpu_torch.ops import attention
+
+    return {name: next(a for a, v in vars(attention).items()
+                       if v is fk.kernel)
+            for name, fk in FLASH_KERNELS.items()}
+
+
+def fit_train_fn(config: dict) -> None:
+    """The train_fn of ``TorchTrainer``: everything is built here, in the
+    worker. A first run builds llama3-1b from the seed on the card and
+    trains it with SGD on its Data shard, one batch a step; the last
+    ``ckpt_steps`` steps report the params as ``state=`` (an async
+    checkpoint each). The last report carries the throughput, the peak
+    allocation, this process's flash launches over the run, the params'
+    fingerprint taken before the last save, and each save's blocking and
+    commit times. A resumed run loads the checkpoint and reports its
+    fingerprint."""
+    import time
+
+    started_at, t_fn = time.time(), time.perf_counter()
+    import dataclasses
+    import os
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.llm.weights import params_fingerprint
+    from ray_tpu_torch.models.llama import (PRESETS, init_params, loss_fn,
+                                            train_flops_per_token)
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.resilience import list_committed, load_checkpoint
+    from ray_tpu_torch.train.checkpoint import map_tree
+
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    where = {"pid": os.getpid(), "device": str(device),
+             "started_at": started_at, "import_s": t0 - t_fn,
+             "device_name": torch.cuda.get_device_name(device)}
+    resumed = train.get_checkpoint()
+    if resumed is not None:
+        state, meta = load_checkpoint(resumed.path)
+        params = map_tree(lambda t: t.to(device), state["params"])
+        train.report({**where, "resumed_step": int(meta["step"]),
+                      "resumed_fingerprint": params_fingerprint(params),
+                      "load_s": time.perf_counter() - t0})
+        return
+
+    cfg = dataclasses.replace(PRESETS[config["preset"]],
+                              remat_policy=config["remat_policy"])
+    params = init_params(cfg, torch.Generator(device).manual_seed(
+        config["seed"]))
+    leaves = []
+    map_tree(leaves.append, params)
+    for p in leaves:
+        p.requires_grad_()
+    init_s = time.perf_counter() - t0
+    kernels = {name: getattr(attention, attr)
+               for name, attr in config["kernels"].items()}
+    before = {name: k.launches for name, k in kernels.items()}
+    torch.cuda.reset_peak_memory_stats(device)
+    warmup, timed = config["warmup"], config["timed"]
+    n_steps = warmup + timed + config["ckpt_steps"]
+    losses, step_s, saves = [], [], []
+    shard = train.get_dataset_shard("train")
+    for i, batch in enumerate(shard.to_device_batches(
+            batch_size=config["batch"], device=device)):
+        if i == warmup:
+            torch.cuda.synchronize(device)
+            t_timed = time.perf_counter()
+        t_step = time.perf_counter()
+        loss = loss_fn(params, {"tokens": batch["tokens"]}, cfg,
+                       chunk_tokens=config["chunk"])
+        loss.backward()
+        with torch.no_grad():
+            for p in leaves:
+                p.sub_(config["lr"] * p.grad)
+                p.grad = None
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t_step)
+        if i == warmup + timed - 1:
+            torch.cuda.synchronize(device)
+            timed_s = time.perf_counter() - t_timed
+        if i < warmup + timed:
+            train.report({"step": i, "loss": losses[-1]})
+            continue
+        metrics = {"step": i, "loss": losses[-1]}
+        if i == n_steps - 1:
+            launches = {n: k.launches - before[n] for n, k in kernels.items()}
+            tokens_per_sec = config["batch"] * batch["tokens"].shape[1] \
+                * timed / timed_s
+            metrics.update(
+                where, steps=i + 1, losses=losses, step_s=step_s,
+                init_s=init_s, timed_s=timed_s,
+                tokens_per_sec=tokens_per_sec,
+                mfu=tokens_per_sec * train_flops_per_token(
+                    cfg, batch["tokens"].shape[1]) / config["peak_flops"],
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
+                    device),
+                kernel_launches=launches, saved_step=i,
+                saved_fingerprint=params_fingerprint(params))
+        t_save = time.perf_counter()
+        train.report(metrics, state={"params": params, "step": i})
+        saves.append({"step": i, "block_ms": (time.perf_counter() - t_save)
+                      * 1e3, "returned_at": time.time()})
+    # Wait for the commits (the writer thread), then time each one: save
+    # returned -> its commit marker written.
+    root = os.path.join(train.get_context().storage_path, "async_ckpts")
+    deadline = time.monotonic() + config["commit_timeout_s"]
+    while time.monotonic() < deadline and not any(
+            s == n_steps - 1 for s, _ in list_committed(root)):
+        time.sleep(0.05)
+    committed = dict(list_committed(root))
+    for save in saves:
+        path = committed.get(save["step"])
+        save["commit_s"] = (os.stat(os.path.join(path, "COMMITTED")).st_mtime
+                            - save["returned_at"]) if path else None
+    train.report({"step": n_steps, "saves": saves, "root": root})
+
+
+def _fit(name: str, storage: str, ds, resume=None, **config):
+    from ray_tpu_torch import train
+
+    return train.TorchTrainer(
+        fit_train_fn,
+        train_loop_config=dict(
+            preset="llama3-1b", remat_policy="attn",
+            seed=0, batch=TRAIN_BATCH, chunk=TRAIN_CHUNK, lr=TRAIN_LR,
+            warmup=TRAIN_WARMUP, timed=TRAIN_STEPS,
+            ckpt_steps=FIT_CKPT_STEPS, kernels=_kernel_attrs(),
+            peak_flops=PEAK_FLOPS[torch.bfloat16],
+            commit_timeout_s=FIT_TIMEOUT_S, **config),
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=train.RunConfig(
+            name=name, storage_path=storage,
+            checkpoint_config=train.CheckpointConfig(
+                async_save=True, num_to_keep=FIT_CKPT_STEPS)),
+        datasets={"train": ds} if ds is not None else None,
+        resume_from_checkpoint=resume).fit()
+
+
+def phase_train_fit(train_stats: dict, seed: int = 0) -> dict:
+    """The train leg through its normal entry points (the port's
+    bench.py::run_framework): ``init()`` on the card, a Data set of
+    (2 + 5 + 2) x 8 rows of 2,048 tokens made from the seed, and
+    ``TorchTrainer.fit`` with one worker leased the card, which trains
+    llama3-1b on its shard and commits two async checkpoints. Then a
+    second fit resumes from the registered checkpoint and must load the
+    params the first one saved. Returns the flash kernels' launches
+    counted in the first fit's worker."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch.resilience import latest_registered
+
+    cfg = PRESETS["llama3-1b"]
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS + FIT_CKPT_STEPS
+    tokens = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (n_steps * TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    storage = tempfile.mkdtemp(prefix="train_fit_")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rt.init()
+    try:
+        gpus = rt.cluster_resources().get("GPU", 0.0)
+        if gpus != float(torch.cuda.device_count()) or gpus < 1:
+            raise AssertionError(f"node reports GPU {gpus}, the host has "
+                                 f"{torch.cuda.device_count()} cards")
+        init_s = time.perf_counter() - t0
+        ds = data.from_numpy(tokens, column="tokens")
+        t1, fit_started_at = time.perf_counter(), time.time()
+        result = _fit(FIT_RUN, storage, ds)
+        fit_s = time.perf_counter() - t1
+        if result.error is not None:
+            raise AssertionError(f"fit failed: {result.error}")
+        history = result.metrics_history
+        final = next(m for m in history if "kernel_launches" in m)
+        saves = history[-1]["saves"]
+        if final["pid"] == os.getpid():
+            raise AssertionError("the train worker runs in the driver")
+        if not final["device"].startswith("cuda"):
+            raise AssertionError(f"train worker on {final['device']}")
+        if not all(math.isfinite(x) for x in final["losses"]):
+            raise AssertionError(f"non-finite loss: {final['losses']}")
+        launches = {name: final["kernel_launches"][name]
+                    for name in FLASH_KERNELS}
+        on_route = {flash_kernel_of(step, cfg.dtype)
+                    for step in ("fwd", "dq", "dkdv")}
+        expected = {name: cfg.n_layers * n_steps if name in on_route else 0
+                    for name in FLASH_KERNELS}
+        if launches != expected:
+            raise AssertionError(f"worker flash launches {launches} != "
+                                 f"{expected} ({cfg.n_layers} layers x "
+                                 f"{n_steps} steps)")
+        entry = latest_registered(FIT_RUN)
+        if entry is None or entry["step"] != final["saved_step"]:
+            raise AssertionError(f"registered checkpoint {entry}, the last "
+                                 f"save was step {final['saved_step']}")
+        if any(s["commit_s"] is None for s in saves):
+            raise AssertionError(f"a save was not committed: {saves}")
+        emit("train_fit", preset="llama3-1b", optimizer="sgd",
+             remat_policy="attn", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+             rows=len(tokens), warmup_steps=TRAIN_WARMUP,
+             timed_steps=TRAIN_STEPS, ckpt_steps=FIT_CKPT_STEPS,
+             init_s=init_s, fit_s=fit_s,
+             # fit() to the train_fn's first line: placement, the worker's
+             # cold spawn, its shard; then its torch import, and the model's
+             # init with CUDA's
+             worker_start_s=final["started_at"] - fit_started_at,
+             worker_import_s=final["import_s"],
+             worker_init_s=final["init_s"],
+             worker_pid=final["pid"], driver_pid=os.getpid(),
+             worker_device=final["device"],
+             worker_device_name=final["device_name"],
+             losses=final["losses"], step_s=final["step_s"],
+             tokens_per_sec=final["tokens_per_sec"], mfu=final["mfu"],
+             median_step_s=float(np.median(
+                 final["step_s"][TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS])),
+             ckpt_step_s=final["step_s"][-FIT_CKPT_STEPS:],
+             max_memory_allocated_bytes=final["max_memory_allocated_bytes"],
+             ckpt_save_block_ms=[s["block_ms"] for s in saves],
+             ckpt_commit_s=[s["commit_s"] for s in saves],
+             registered=entry, kernel_launches=launches,
+             expected_launches=expected,
+             train_phase={k: train_stats[k] for k in (
+                 "tokens_per_sec", "median_step_s",
+                 "max_memory_allocated_bytes")})
+
+        t2 = time.perf_counter()
+        again = _fit(FIT_RUN + "_resume", storage, None,
+                     resume=train.Checkpoint(entry["path"]))
+        if again.error is not None:
+            raise AssertionError(f"resumed fit failed: {again.error}")
+        got = again.metrics_history[-1]
+        if (got["resumed_fingerprint"], got["resumed_step"]) != (
+                final["saved_fingerprint"], final["saved_step"]):
+            raise AssertionError(f"resumed {got}, saved step "
+                                 f"{final['saved_step']} fingerprint "
+                                 f"{final['saved_fingerprint']}")
+        emit("train_fit_resume", fit_s=time.perf_counter() - t2,
+             worker_load_s=got["load_s"], worker_pid=got["pid"],
+             resumed_step=got["resumed_step"],
+             fingerprint=got["resumed_fingerprint"], equal=True)
+    finally:
+        try:
+            rt.shutdown()
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+    deadline = time.monotonic() + 20.0
+    while _worker_pids() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _worker_pids()
+    if left:
+        raise AssertionError(f"worker processes left after shutdown: {left}")
+    emit("train_fit_shutdown", workers_left=0,
+         total_s=time.perf_counter() - t0)
+    return launches
 
 
 def phase_lm_head_grad(seed: int = 0) -> dict:
@@ -3074,7 +3475,8 @@ def main() -> int:
     flash_err = phase_flash_kernel()
     flash_times = phase_flash_time()
     phase_lm_head_grad()
-    train_launches = phase_train()
+    train_launches, train_stats = phase_train()
+    fit_launches = phase_train_fit(train_stats)
     parity_launches = phase_train_parity()
     launches, serve_stats = phase_serve()
     deadline_launches = phase_deadline()
@@ -3127,6 +3529,9 @@ def main() -> int:
             # on the bf16 train path; the simt forward and dK/dV run on
             # the f32 path (train_parity) instead
             "launches": train_launches[name],
+            # the Train library's worker, a process leased the card
+            # (`train_fit`, bf16)
+            "launches_train_fit": fit_launches[name],
             "launches_f32_train_parity": parity_launches[name],
             "max_abs_err": flash_err[name], **flash_times[name]})
     print(json.dumps({"kernels": kernels}))

@@ -12,8 +12,11 @@ It imports neither JAX nor ``ray_tpu``.
 
 The runtime is the JAX package's own, copied: tasks, actors, the
 shared-memory object store and ``GPU`` leases (``init``, ``remote``,
-``get``, ...), and Serve (``ray_tpu_torch.serve``), which runs the LLM
-app (``ray_tpu_torch.llm.build_llm_app``). A port cluster keeps its own
+``get``, ...), Serve (``ray_tpu_torch.serve``), which runs the LLM
+app (``ray_tpu_torch.llm.build_llm_app``), and the Train and Data
+libraries (``ray_tpu_torch.train.TorchTrainer`` over
+``ray_tpu_torch.data`` shards, with async checkpoints from
+``ray_tpu_torch.resilience``). A port cluster keeps its own
 session dir and environment names, so it never meets a ``ray_tpu`` one.
 
 Entry points: ``ray_tpu_torch.llm.InferenceEngine``, ``LLMDeployment``,
@@ -61,7 +64,8 @@ from .core.status import (
 
 __version__ = "0.1.0"
 
-_LAZY = ("llm", "models", "observability", "ops", "serve")
+_LAZY = ("data", "llm", "models", "observability", "ops", "resilience",
+         "serve", "train")
 
 
 def __getattr__(name):

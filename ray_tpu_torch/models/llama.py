@@ -10,9 +10,11 @@ kernels on a CUDA tensor) or ``ops.mha_reference``. bf16 params and
 activations, f32 norm and softmax statistics and loss. Layers run in a
 Python loop over the stacked weights (the JAX package scans them).
 
+Remat policies: ``"full"``, ``"attn"`` (keep q, k, v and the attention
+output) and ``"dots"`` (keep the products' outputs, recompute the rest).
+
 Not ported yet: MoE presets (raise), meshes and pipeline stages (a
-``mesh`` raises), ring and Ulysses attention, the ``"dots"`` remat policy
-(raises).
+``mesh`` raises), ring and Ulysses attention.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ class LlamaConfig:
     remat: bool = True
     # "full": recompute the whole block in backward; "attn": keep q, k, v
     # and the attention output, recompute the rest (the attention forward
-    # never runs twice); "dots" is not ported yet.
+    # never runs twice); "dots": keep the outputs of the products that the
+    # backward reads, recompute the norms, RoPE, SiLU and attention.
     remat_policy: str = "full"
     # MoE: n_experts > 0 selects a routed expert MLP (not ported yet).
     moe_experts: int = 0
@@ -115,20 +118,34 @@ def _layer(params: dict, l: int) -> dict:
     return {name: w[l] for name, w in params["layers"].items()}
 
 
-def _project_qkv(h, layer):
-    q = torch.einsum("bse,ehd->bhsd", h, layer["wq"])
-    k = torch.einsum("bse,ehd->bhsd", h, layer["wk"])
-    v = torch.einsum("bse,ehd->bhsd", h, layer["wv"])
-    return q, k, v
+# The block's products: q, k and v, wo, the MLP's gate and up, and down.
+_QKV_EQ = "bse,ehd->bhsd"
+_WO_EQ = "bhsd,hde->bse"
+_UP_EQ = "bse,em->bsm"
+_DOWN_EQ = "bsm,me->bse"
+
+
+def _einsum(name, eq, a, w):
+    """One of the block's products; ``name`` says which (the "dots"
+    policy keeps some of them by name)."""
+    return torch.einsum(eq, a, w)
+
+
+def _project_qkv(h, layer, product=_einsum):
+    return tuple(product(n, _QKV_EQ, h, layer[f"w{n}"]) for n in "qkv")
+
+
+def _gated(x, layer, c: LlamaConfig, product=_einsum):
+    """RMSNorm, then the SwiGLU's gated product input, silu in f32."""
+    h = rms_norm(x, layer["mlp_norm"], eps=c.norm_eps)
+    gate = product("gate", _UP_EQ, h, layer["w_gate"])
+    up = product("up", _UP_EQ, h, layer["w_up"])
+    return F.silu(gate.float()).to(c.dtype) * up
 
 
 def _mlp(x, layer, c: LlamaConfig):
     """Residual SwiGLU MLP with the silu in f32."""
-    h = rms_norm(x, layer["mlp_norm"], eps=c.norm_eps)
-    gate = torch.einsum("bse,em->bsm", h, layer["w_gate"])
-    up = torch.einsum("bse,em->bsm", h, layer["w_up"])
-    ff = F.silu(gate.float()).to(c.dtype) * up
-    return x + torch.einsum("bsm,me->bse", ff, layer["w_down"])
+    return x + torch.einsum(_DOWN_EQ, _gated(x, layer, c), layer["w_down"])
 
 
 def _check_supported(c: LlamaConfig, mesh) -> None:
@@ -152,10 +169,10 @@ def _attention(q, k, v, config: LlamaConfig, mesh=None):
     raise ValueError(f"unknown attn_impl {config.attn_impl!r}")
 
 
-def _attn_inputs(x, layer, positions, c: LlamaConfig):
+def _attn_inputs(x, layer, positions, c: LlamaConfig, product=_einsum):
     """x -> RMSNorm -> q/k/v projections -> RoPE on q and k."""
     h = rms_norm(x, layer["attn_norm"], eps=c.norm_eps)
-    q, k, v = _project_qkv(h, layer)
+    q, k, v = _project_qkv(h, layer, product)
     q = apply_rope(q, positions, theta=c.rope_theta)
     k = apply_rope(k, positions, theta=c.rope_theta)
     return q, k, v
@@ -163,7 +180,7 @@ def _attn_inputs(x, layer, positions, c: LlamaConfig):
 
 def _attn_out_and_mlp(x, attn, layer, c: LlamaConfig):
     """Output projection and residual, then the residual MLP."""
-    x = x + torch.einsum("bhsd,hde->bse", attn, layer["wo"])
+    x = x + torch.einsum(_WO_EQ, attn, layer["wo"])
     return _mlp(x, layer, c)
 
 
@@ -173,6 +190,93 @@ def _block(x, layer, positions, config: LlamaConfig, mesh=None):
     q, k, v = _attn_inputs(x, layer, positions, config)
     attn = _attention(q, k, v, config, mesh)
     return _attn_out_and_mlp(x, attn, layer, config)
+
+
+_LAYER_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
+                "w_up", "w_down")
+# The products whose outputs "dots" keeps, in the order it saves them.
+# The down product's output only feeds the residual add, whose backward
+# never reads it, so it is not kept (nor is it by JAX's remat, which
+# saves only the residuals its backward reads).
+DOTS_SAVED = ("q", "k", "v", "wo", "gate", "up")
+
+
+def _product_grads(eq: str, a, w, g):
+    """The gradients of ``einsum(eq, a, w)`` in a and w for cotangent g."""
+    ins, out = eq.split("->")
+    ia, iw = ins.split(",")
+    return (torch.einsum(f"{out},{iw}->{ia}", g, w),
+            torch.einsum(f"{ia},{out}->{iw}", a, g))
+
+
+class _SavedProduct(torch.autograd.Function):
+    """``einsum(eq, a, w)`` whose value was kept by the forward: the
+    "dots" backward's recompute takes the product from there, and the
+    gradients still reach a and w."""
+
+    @staticmethod
+    def forward(ctx, a, w, out, eq):
+        ctx.save_for_backward(a, w)
+        ctx.eq = eq
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        da, dw = _product_grads(ctx.eq, a, w, g)
+        return da, dw, None, None
+
+
+def _dots_body(x, layer, positions, c: LlamaConfig, product):
+    """The block up to the down product, with each product made by
+    ``product(name, eq, a, w)``. Returns the residual after attention and
+    the SiLU-gated MLP input."""
+    q, k, v = _attn_inputs(x, layer, positions, c, product)
+    x = x + product("wo", _WO_EQ, _attention(q, k, v, c), layer["wo"])
+    return x, _gated(x, layer, c, product)
+
+
+class _DotsBlock(torch.autograd.Function):
+    """The decoder block under JAX's ``dots_with_no_batch_dims_saveable``.
+
+    The forward keeps the block input and the outputs of the products in
+    ``DOTS_SAVED``. The backward recomputes both RMSNorms, RoPE, the
+    attention forward (a launch of its kernel) and the SiLU from them,
+    with every product taken from the forward's copy, then runs autograd
+    over that recompute. The flash kernel is not a product, so it is
+    recomputed, as the Pallas call is in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, positions, c, *weights):
+        layer = dict(zip(_LAYER_NAMES, weights))
+        kept = {}
+
+        def product(name, eq, a, w):
+            kept[name] = torch.einsum(eq, a, w)
+            return kept[name]
+
+        x1, ff = _dots_body(x, layer, positions, c, product)
+        ctx.save_for_backward(x, *(kept[n] for n in DOTS_SAVED), *weights)
+        ctx.positions, ctx.c = positions, c
+        return x1 + torch.einsum(_DOWN_EQ, ff, layer["w_down"])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *rest = ctx.saved_tensors
+        kept = dict(zip(DOTS_SAVED, rest[:len(DOTS_SAVED)]))
+        weights = rest[len(DOTS_SAVED):]
+        with torch.enable_grad():
+            x = x.detach().requires_grad_()
+            leaves = [w.detach().requires_grad_() for w in weights]
+            layer = dict(zip(_LAYER_NAMES, leaves))
+            x1, ff = _dots_body(
+                x, layer, ctx.positions, ctx.c,
+                lambda name, eq, a, w: _SavedProduct.apply(a, w, kept[name],
+                                                           eq))
+            dff, dw_down = _product_grads(_DOWN_EQ, ff, layer["w_down"], g)
+            inputs = [x, *leaves[:-1]]
+            grads = torch.autograd.grad([x1, ff], inputs, [g, dff])
+        return (grads[0], None, None, *grads[1:], dw_down)
 
 
 def _apply_remat(config: LlamaConfig, positions, mesh=None):
@@ -185,7 +289,8 @@ def _apply_remat(config: LlamaConfig, positions, mesh=None):
     structure: one checkpoint over x -> q/k/v (its recompute runs the norm,
     projections and RoPE again), the attention outside any checkpoint (it
     saves q, k, v, its output and lse, and its forward runs once per
-    step), and one checkpoint over (x, attn) -> the block output."""
+    step), and one checkpoint over (x, attn) -> the block output.
+    ``"dots"`` is ``_DotsBlock``."""
     c = config
     if not c.remat:
         return lambda x, layer: _block(x, layer, positions, c, mesh)
@@ -201,8 +306,11 @@ def _apply_remat(config: LlamaConfig, positions, mesh=None):
                               use_reentrant=False)
         return block
     if c.remat_policy == "dots":
-        raise NotImplementedError(
-            'remat_policy "dots" (save matmul outputs) is not ported yet')
+        def block(x, layer):
+            _check_supported(c, mesh)
+            return _DotsBlock.apply(x, positions, c,
+                                    *(layer[n] for n in _LAYER_NAMES))
+        return block
     raise ValueError(f"unknown remat_policy {c.remat_policy!r}")
 
 

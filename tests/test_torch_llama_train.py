@@ -236,7 +236,7 @@ def test_moe_presets_raise(preset):
         train_flops_per_token(cfg, 16)
 
 
-@pytest.mark.parametrize("what", ["mesh", "dots", "ring"])
+@pytest.mark.parametrize("what", ["mesh", "ring"])
 def test_unported_options_raise(what):
     _, tcfg = _configs("debug")
     _, tparams = _params(tcfg)
@@ -244,8 +244,6 @@ def test_unported_options_raise(what):
     kw = {}
     if what == "mesh":
         kw["mesh"] = object()
-    elif what == "dots":
-        tcfg = dataclasses.replace(tcfg, remat_policy="dots")
     else:
         tcfg = dataclasses.replace(tcfg, attn_impl="ring")
     with pytest.raises(NotImplementedError):
