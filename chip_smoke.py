@@ -75,6 +75,24 @@ Phases, each printing JSON lines:
                 that checkpoint and its worker must load params of the
                 fingerprint the first worker took before it saved; no
                 worker process may be left after ``shutdown()``;
+  train_loop    the structured step spec through ``DataParallelTrainer``:
+                ``TrainLoopConfig`` with ``train``'s step (llama3-1b,
+                remat "attn", SGD) and no drive argument, whose default is
+                the compiled loop: data, step and checkpoint stage actors
+                parked once over shm rings (``compile_loop``), the step
+                stage leased the card; 2 warm-up and 6 timed steps of 8 x
+                2,048 seeded tokens, a snapshot every 4 steps through the
+                step -> checkpoint ring (its slots sized from a packed
+                snapshot message made here first), 2 credits; then the
+                same spec with ``use_compiled_loop=False`` (the eager
+                drive). The step stage must be another process on the
+                card with 16 launches a step of each sm90 flash kernel and
+                0 simt (counted there), the two drives' per-step losses
+                bit-equal, each drive must commit two checkpoints and
+                register the last, and no worker may be left; prints the
+                step wall time, tokens per second, the checkpoint overlap
+                and blocking, the pack's bytes and seconds, the rings'
+                bytes, the loop's stall attribution and teardown time;
   train_parity  f32 loss and every gradient of the kernel path
                 (attn_impl="flash", the simt kernels) equal the plain
                 path's ("reference") at llama3-1b widths and 2 layers, with
@@ -1310,6 +1328,232 @@ def phase_train_fit(train_stats: dict, seed: int = 0) -> dict:
     emit("train_fit_shutdown", workers_left=0,
          total_s=time.perf_counter() - t0)
     return launches
+
+
+# ------------------------------------------------------------- train_loop
+# The structured step spec (TrainLoopConfig) at train's step: the default
+# drive parks data -> step -> ckpt stage actors on a compiled loop over shm
+# rings; the same spec with use_compiled_loop=False is the eager drive.
+LOOP_WARMUP, LOOP_TIMED = 2, 6
+LOOP_SNAPSHOT_EVERY = 4
+LOOP_CREDITS = 2
+LOOP_RUN = "train_loop"
+LOOP_RINGS = 4           # driver -> data -> step -> ckpt -> driver
+LOOP_MARGIN = 1 << 20    # a slot's room past the packed snapshot message
+LOOP_STORE_SLOTS = 2     # packed snapshots the object store holds (eager)
+
+
+def _loop_fns(cfg, seed: int, kernels: dict) -> tuple:
+    """init/data/step functions of the spec, closures pickled by value for
+    the stage actors. ``init_fn`` builds ``cfg`` from the seed on the
+    card (the step stage's process); ``data_fn`` yields 8 x 2,048 seeded
+    tokens a step as numpy (the data stage never touches CUDA);
+    ``step_fn`` runs ``train``'s ``_sgd_step`` and reports its loss, its
+    process and device, its end time and this process's flash launches
+    in the step (``kernels``: ``_kernel_attrs()``)."""
+
+    def init_fn(config):
+        import torch
+
+        from ray_tpu_torch.models.llama import init_params
+
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(seed))
+        for p in _leaves(params):
+            p.requires_grad_()
+        return params
+
+    def data_fn(config):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        return iter([rng.integers(0, cfg.vocab_size, (
+            config["batch"], config["seq"])).astype(np.int64)
+            for _ in range(config["steps"])])
+
+    def step_fn(params, tokens):
+        import os
+        import time
+
+        import torch
+
+        from ray_tpu_torch.ops import attention
+
+        counted = {name: getattr(attention, attr)
+                   for name, attr in kernels.items()}
+        before = {name: k.launches for name, k in counted.items()}
+        # the ring's bytes are read-only: copy them into the tensor
+        batch = torch.tensor(tokens, device="cuda")
+        loss = _sgd_step(params, {"tokens": batch}, cfg, TRAIN_LR)
+        return params, {
+            "loss": loss.item(), "pid": os.getpid(),
+            "device": str(batch.device), "ended_at": time.time(),
+            "launches": {name: k.launches - before[name]
+                         for name, k in counted.items()}}
+
+    return init_fn, data_fn, step_fn
+
+
+def _packed_snapshot(cfg, seed: int) -> dict:
+    """What the step stage sends down its ring at a snapshot step, made
+    here the same way: llama3-1b from the seed on the card, its host
+    snapshot (``resilience.checkpoint._snapshot``) in a step message, and
+    ``dag.compiled._pack`` of that message. Returns the packed bytes and
+    the snapshot's and the pack's seconds; the ring's slots are sized
+    from the bytes."""
+    from ray_tpu_torch.dag.compiled import _pack
+    from ray_tpu_torch.resilience.checkpoint import _snapshot
+
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = _snapshot(params)
+    t1 = time.perf_counter()
+    del params
+    torch.cuda.empty_cache()
+    message = {"step": LOOP_SNAPSHOT_EVERY - 1,
+               "metrics": {"loss": 0.0, "pid": 0, "device": "cuda:0",
+                           "ended_at": time.time(),
+                           "launches": dict.fromkeys(FLASH_KERNELS, 0)},
+               "step_window": (time.time(), time.time()),
+               "snapshot": snap, "snapshot_ms": 0.0}
+    t2 = time.perf_counter()
+    packed = len(_pack(message))
+    t3 = time.perf_counter()
+    return {"tree_bytes": tree_bytes(snap), "packed_bytes": packed,
+            "snapshot_s": t1 - t0, "pack_s": t3 - t2}
+
+
+def _loop_fit(name: str, storage: str, spec, drive):
+    from ray_tpu_torch import train
+
+    return train.DataParallelTrainer(
+        spec,
+        train_loop_config={"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                           "steps": LOOP_WARMUP + LOOP_TIMED},
+        scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=train.RunConfig(name=name, storage_path=storage),
+        **({} if drive is None else {"use_compiled_loop": drive})).fit()
+
+
+def phase_train_loop(seed: int = 0) -> dict:
+    """The structured step spec through ``DataParallelTrainer`` at
+    llama3-1b full width: ``TrainLoopConfig`` with no drive argument, whose
+    default is the compiled loop (three stage actors parked over shm
+    rings, the step stage leased the card), then the same spec with
+    ``use_compiled_loop=False``, in turns. Each run takes 2 warm-up and 6
+    timed SGD steps and commits snapshots at steps 4 and 8. Checks the
+    drive's mode, the step stage in another process on the card with 16
+    launches a step of each sm90 flash kernel and 0 simt (counted there),
+    bit-equal per-step losses across the drives, two commits each with the
+    last registered on the GCS, and no worker left after ``shutdown()``.
+    Returns the flash launches of the compiled loop's run."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.resilience import latest_registered
+
+    cfg = dataclasses.replace(PRESETS["llama3-1b"], remat_policy="attn")
+    n_steps = LOOP_WARMUP + LOOP_TIMED
+    torch.cuda.empty_cache()
+    packed = _packed_snapshot(cfg, seed)
+    capacity = packed["packed_bytes"] + LOOP_MARGIN
+    storage = tempfile.mkdtemp(prefix="train_loop_")
+    on_route = {flash_kernel_of(step, cfg.dtype)
+                for step in ("fwd", "dq", "dkdv")}
+    expected = {name: cfg.n_layers * n_steps if name in on_route else 0
+                for name in FLASH_KERNELS}
+    t0 = time.perf_counter()
+    # The eager drive hands each step's output to the checkpoint stage
+    # through the object store: room for two packed snapshots.
+    rt.init(object_store_memory=LOOP_STORE_SLOTS * capacity)
+    runs = {}
+    try:
+        for mode, drive in (("loop", None), ("eager", False)):
+            init_fn, data_fn, step_fn = _loop_fns(cfg, seed, _kernel_attrs())
+            spec = train.TrainLoopConfig(
+                step_fn=step_fn, init_fn=init_fn, data_fn=data_fn,
+                num_steps=n_steps, snapshot_every=LOOP_SNAPSHOT_EVERY,
+                credits=LOOP_CREDITS, channel_capacity=capacity)
+            name = LOOP_RUN if mode == "loop" else f"{LOOP_RUN}_eager"
+            t1 = time.perf_counter()
+            result = _loop_fit(name, storage, spec, drive)
+            fit_s = time.perf_counter() - t1
+            if result.error is not None:
+                raise AssertionError(f"{mode} fit failed: {result.error}")
+            stats = result.loop_stats
+            history = result.metrics_history
+            if stats["mode"] != mode:
+                raise AssertionError(f"drive {stats['mode']}, expected {mode}")
+            if len(history) != n_steps:
+                raise AssertionError(f"{len(history)} steps reported")
+            pids = {m["pid"] for m in history}
+            devices = {m["device"] for m in history}
+            if len(pids) != 1 or os.getpid() in pids:
+                raise AssertionError(f"step stage pids {pids}")
+            if not all(d.startswith("cuda") for d in devices):
+                raise AssertionError(f"step stage on {devices}")
+            launches = {name_: sum(m["launches"][name_] for m in history)
+                        for name_ in FLASH_KERNELS}
+            if launches != expected:
+                raise AssertionError(f"{mode} step-stage flash launches "
+                                     f"{launches} != {expected}")
+            losses = [m["loss"] for m in history]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"non-finite loss: {losses}")
+            if stats["ckpt_commits"] != n_steps // LOOP_SNAPSHOT_EVERY:
+                raise AssertionError(f"{stats['ckpt_commits']} commits")
+            entry = latest_registered(name)
+            if entry is None or entry["step"] != n_steps - 1:
+                raise AssertionError(f"registered checkpoint {entry}")
+            ended = [m["ended_at"] for m in history]
+            timed_s = ended[-1] - ended[LOOP_WARMUP - 1]
+            runs[mode] = {
+                "losses": losses, "launches": launches, "fit_s": fit_s,
+                "step_pid": pids.pop(),
+                "steady_step_wall_us": stats["steady_step_wall_us"],
+                "timed_s": timed_s,
+                "tokens_per_sec": TRAIN_BATCH * TRAIN_SEQ * LOOP_TIMED
+                / timed_s,
+                "train_ckpt_overlap_frac": stats["train_ckpt_overlap_frac"],
+                "ckpt_save_block_ms": stats["ckpt_save_block_ms"],
+                "ckpt_total_s": stats["ckpt_total_s"],
+                "ckpt_commits": stats["ckpt_commits"],
+                "loop_stall": stats.get("loop_stall"),
+                "loop_torn_down_in_s": stats.get("loop_torn_down_in_s"),
+                "registered_step": entry["step"]}
+            emit("train_loop_drive", mode=mode, **runs[mode])
+        if runs["loop"]["losses"] != runs["eager"]["losses"]:
+            raise AssertionError(f"loop losses {runs['loop']['losses']} != "
+                                 f"eager {runs['eager']['losses']}")
+        if not runs["loop"]["loop_stall"] or \
+                runs["loop"]["loop_torn_down_in_s"] is None:
+            raise AssertionError("the loop drive kept no stall stats")
+    finally:
+        try:
+            rt.shutdown()
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+    deadline = time.monotonic() + 20.0
+    while _worker_pids() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _worker_pids()
+    if left:
+        raise AssertionError(f"worker processes left after shutdown: {left}")
+    emit("train_loop", preset="llama3-1b", optimizer="sgd", lr=TRAIN_LR,
+         remat_policy="attn", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         chunk_tokens=TRAIN_CHUNK, warmup_steps=LOOP_WARMUP,
+         timed_steps=LOOP_TIMED, snapshot_every=LOOP_SNAPSHOT_EVERY,
+         credits=LOOP_CREDITS, channel_capacity=capacity,
+         ring_bytes=LOOP_RINGS * LOOP_CREDITS * capacity,
+         snapshot_tree_bytes=packed["tree_bytes"],
+         snapshot_packed_bytes=packed["packed_bytes"],
+         snapshot_s=packed["snapshot_s"], pack_s=packed["pack_s"],
+         losses_bit_equal=True, expected_launches=expected,
+         object_store_memory=LOOP_STORE_SLOTS * capacity,
+         driver_pid=os.getpid(), workers_left=0,
+         total_s=time.perf_counter() - t0)
+    return runs["loop"]["launches"]
 
 
 def phase_lm_head_grad(seed: int = 0) -> dict:
@@ -3477,6 +3721,7 @@ def main() -> int:
     phase_lm_head_grad()
     train_launches, train_stats = phase_train()
     fit_launches = phase_train_fit(train_stats)
+    loop_launches = phase_train_loop()
     parity_launches = phase_train_parity()
     launches, serve_stats = phase_serve()
     deadline_launches = phase_deadline()
@@ -3532,6 +3777,9 @@ def main() -> int:
             # the Train library's worker, a process leased the card
             # (`train_fit`, bf16)
             "launches_train_fit": fit_launches[name],
+            # the compiled train loop's step stage, a process leased the
+            # card (`train_loop`, bf16, TrainLoopConfig's default drive)
+            "launches_train_loop": loop_launches[name],
             "launches_f32_train_parity": parity_launches[name],
             "max_abs_err": flash_err[name], **flash_times[name]})
     print(json.dumps({"kernels": kernels}))

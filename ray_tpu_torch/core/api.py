@@ -345,9 +345,9 @@ class ActorMethod:
     def bind(self, *args, **kwargs):
         """Build a compiled-graph node instead of submitting now
         (reference ``dag/class_node.py`` ClassMethodNode)."""
-        raise NotImplementedError(
-            "compiled-graph binding is not ported yet (ROADMAP queue A "
-            "item 4: dag.nodes and the compiled dag loop)")
+        from ..dag.nodes import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
 
 class ActorHandle:

@@ -18,7 +18,7 @@ import time
 from ..chaos import clock as chaos_clock
 from .checkpoint import Checkpoint, CheckpointManager
 from .config import Result, RunConfig, ScalingConfig
-from .loop import TrainLoopConfig, TrainLoopRunner, check_drive
+from .loop import TrainLoopConfig, TrainLoopRunner
 from .worker_group import LoopWorkerGroup, WorkerGroup
 
 logger = logging.getLogger(__name__)
@@ -147,8 +147,6 @@ class TrainController:
         # eager per-step dispatch or the persistent compiled loop.
         self._loop_spec = train_fn if isinstance(train_fn, TrainLoopConfig) \
             else None
-        if self._loop_spec is not None:
-            check_drive(self._loop_spec, use_compiled_loop)
         self._use_compiled_loop = use_compiled_loop
         self.loop_stats: dict | None = None
         self._config = train_loop_config or {}

@@ -6,22 +6,35 @@ stage actors —
     data-loader  →  train-step  →  checkpoint-snapshot
 
 — and the ``AsyncCheckpointManager`` host snapshot commits in its OWN
-stage. The port drives the stages **eagerly**: one dynamically
-dispatched ``.remote()`` chain per step (the submit→lease→push path every
-iteration). The JAX package's other drive, the persistent compiled loop
-(``use_compiled_loop=True``, parked on ``dag/loop.py``), is not ported
-yet (ROADMAP queue A item 4) and raises.
+stage. Both drive modes run the SAME stage actors in the SAME order, so
+they are byte-identical at a fixed seed (the parity contract the tests
+assert):
 
-The classic ``train_fn`` + ``train.report()`` API is untouched; the loop
-mode is opt-in via ``DataParallelTrainer(TrainLoopConfig(...),
-use_compiled_loop=False)``. Loop-mode step metrics reach the controller
-through the same ingest path (``Result.metrics_history`` is shaped
-identically).
+  * **compiled loop** (the default, ``use_compiled_loop=True``):
+    ``compile_loop`` (``dag/loop.py``) parks the stages once; afterwards
+    ``put(step)`` / ``get()`` stream over shm rings with up to
+    ``credits`` steps in flight, so a steady-state step is a ring write
+    and a ring read with no task submission, RPC or lease traffic, and
+    the checkpoint commit overlaps the next steps' compute
+    (``train_ckpt_overlap_frac``).
+  * **eager** (``use_compiled_loop=False``): one dynamically dispatched
+    ``.remote()`` chain per step, the submit→lease→push path every
+    iteration, with the commit serialized against the next step.
 
-Failure story: a stage death surfaces on a bounded ``get()`` and the
-controller's normal failure policy restarts the attempt from the latest
-GCS-registered async checkpoint — ``recovery_ckpt_lag_steps`` is bounded
-by ``snapshot_every``.
+The train-step stage holds the trainer's worker resources (a ``GPU``
+lease by default) and builds its state on the card; the data and
+checkpoint stages are host helpers that never touch CUDA: a snapshot
+reaches the checkpoint stage as CPU tensors, packed through the ring.
+
+The classic ``train_fn`` + ``train.report()`` API is untouched. Step
+metrics of either drive reach the controller through the same ingest
+path (``Result.metrics_history`` is shaped identically).
+
+Failure story: a stage death (chaos ``kill_loop_stage``, a lost worker)
+surfaces on a bounded ``get()``, the loop tears down within the dag-loop
+cascade bounds, and the controller's failure policy restarts the attempt
+from the latest GCS-registered async checkpoint —
+``recovery_ckpt_lag_steps`` is bounded by ``snapshot_every``.
 """
 
 from __future__ import annotations
@@ -36,11 +49,7 @@ from ..core import api as ray
 
 @dataclasses.dataclass
 class TrainLoopConfig:
-    """Structured step spec for stage-driven training.
-
-    ``use_compiled_loop`` defaults to True, as in the JAX package, but the
-    compiled loop is not ported yet (ROADMAP queue A item 4): pass
-    ``use_compiled_loop=False`` here or to the trainer, or it raises.
+    """Structured step spec for compiled-loop (and eager-driven) training.
 
     step_fn:  ``(state, batch) -> (state, metrics)`` — one training step.
               Runs inside the train-step stage actor; the state pytree
@@ -60,7 +69,11 @@ class TrainLoopConfig:
               (``resilience.AsyncCheckpointManager``); 0 disables
               checkpointing entirely.
     use_compiled_loop: default drive mode (the trainer's
-              ``use_compiled_loop=`` overrides it); only False runs.
+              ``use_compiled_loop=`` overrides it).
+    credits:  max steps in flight through the rings (pipelining depth —
+              this is what lets checkpoint commits overlap compute).
+    channel_capacity: per-message byte bound for the rings; must hold a
+              packed host snapshot when ``snapshot_every`` > 0.
     keep_k:   committed checkpoint versions retained (keep-K GC).
     stage_init_hook: ``(stage_name, config) -> None`` run in each stage
               actor's constructor (``stage_name`` ∈ {"data", "step",
@@ -74,21 +87,10 @@ class TrainLoopConfig:
     data_fn: Callable | None = None
     snapshot_every: int = 0
     use_compiled_loop: bool = True
+    credits: int = 4
+    channel_capacity: int = 4 << 20
     keep_k: int = 2
     stage_init_hook: Callable | None = None
-
-
-COMPILED_LOOP_ITEM = ("the compiled train loop (use_compiled_loop=True) is "
-                      "not ported yet: ROADMAP queue A item 4 (dag/loop.py); "
-                      "pass use_compiled_loop=False")
-
-
-def check_drive(spec: TrainLoopConfig, use_compiled_loop: bool | None) -> None:
-    """Raise unless the run would take the eager drive."""
-    compiled = (spec.use_compiled_loop if use_compiled_loop is None
-                else use_compiled_loop)
-    if compiled:
-        raise NotImplementedError(COMPILED_LOOP_ITEM)
 
 
 def _block_on(tree) -> None:
@@ -191,7 +193,9 @@ class CkptStage:
             t0 = time.time()
             block_ms = self._mgr.save(out["step"], snap,
                                       metrics=out["metrics"])
-            # The tick returns once the commit is on disk.
+            # Waiting here is free parallelism under the compiled loop:
+            # this stage's tick blocks, the step stage (another process,
+            # up to ``credits`` ticks ahead) does not.
             self._mgr.wait(timeout=300.0)
             out["ckpt_window"] = (t0, time.time())
             out["ckpt_save_block_ms"] = round(block_ms, 3)
@@ -207,14 +211,16 @@ def _overlap_s(window: tuple, others: list[tuple]) -> float:
 
 
 class TrainLoopRunner:
-    """Drives the three stages start→num_steps eagerly and folds the
-    per-step entries into overlap/dispatch statistics."""
+    """Drives the three stages start→num_steps in either mode and folds
+    the per-step entries into overlap/dispatch statistics."""
 
     def __init__(self, group, spec: TrainLoopConfig,
                  use_compiled_loop: bool | None = None):
-        check_drive(spec, use_compiled_loop)
         self._group = group
         self._spec = spec
+        self.use_compiled_loop = (spec.use_compiled_loop
+                                  if use_compiled_loop is None
+                                  else use_compiled_loop)
         self.stats: dict[str, Any] = {}
 
     # ------------------------------------------------------------------
@@ -237,19 +243,23 @@ class TrainLoopRunner:
 
         t_run0 = time.perf_counter()
         if total:
-            self._run_eager(start, total, handle)
+            if self.use_compiled_loop:
+                self._run_loop(start, total, handle)
+            else:
+                self._run_eager(start, total, handle)
         wall = time.perf_counter() - t_run0
 
         overlap = sum(_overlap_s(w, step_windows) for w in ckpt_windows)
         ckpt_total = sum(e - s for s, e in ckpt_windows)
         # Steady-state window: end of step 0 → end of the last step.
         # Excludes the first step's warm-up (kernel builds, allocator
-        # growth), so per-step numbers measure the DRIVE, not warmup.
+        # growth) and the loop's one-time channel/park setup, so per-step
+        # numbers measure the DRIVE, not warmup.
         steady_steps = max(0, len(step_windows) - 1)
         steady_wall = (step_windows[-1][1] - step_windows[0][1]
                        if steady_steps else 0.0)
         self.stats = {
-            "mode": "eager",
+            "mode": "loop" if self.use_compiled_loop else "eager",
             "steps": total,
             "start_step": start,
             "wall_s": round(wall, 4),
@@ -267,6 +277,19 @@ class TrainLoopRunner:
             "train_ckpt_overlap_frac": (
                 round(overlap / ckpt_total, 4) if ckpt_total > 0 else None),
         }
+        if getattr(self, "_torn_down_in_s", None) is not None:
+            self.stats["loop_torn_down_in_s"] = round(self._torn_down_in_s, 4)
+        loop_stats = getattr(self, "_loop_stats", None)
+        if loop_stats:
+            self.stats["loop_stall"] = {
+                "bottleneck": loop_stats.get("bottleneck"),
+                "stages": {
+                    name: {"ticks": st.get("ticks", 0),
+                           "state": st.get("state"),
+                           "frac": st.get("frac")}
+                    for name, st in (loop_stats.get("stages") or {}).items()
+                },
+            }
         return self.stats
 
     # ------------------------------------------------------------------
@@ -284,8 +307,40 @@ class TrainLoopRunner:
                 timeout=600)
             handle(entry)
 
+    def _run_loop(self, start: int, total: int, handle) -> None:
+        """Compiled-loop drive: park the stages once, then stream —
+        ``put`` is a ring write, results drain in order ``credits``
+        deep behind, and the parked checkpoint stage commits while the
+        step stage computes ahead of it."""
+        from ..dag import InputNode, compile_loop
+
+        g = self._group
+        with InputNode() as inp:
+            out = g.ckpt.commit.bind(
+                g.step.train_step.bind(
+                    g.data.next_batch.bind(inp)))
+        loop = compile_loop(out, max_buffer_size=self._spec.channel_capacity,
+                            credits=self._spec.credits)
+        got = 0
+        try:
+            for i in range(start, start + total):
+                loop.put(i, timeout=300.0)
+                while loop.in_flight >= loop.credits:
+                    handle(loop.get(timeout=300.0))
+                    got += 1
+            while got < total:
+                handle(loop.get(timeout=300.0))
+                got += 1
+        finally:
+            loop.teardown()
+            # Stall attribution of the drive: which of data/step/ckpt
+            # the loop actually waited on. Teardown captures it after
+            # the stages' final flush, before the snapshot files vanish.
+            self._loop_stats = getattr(loop, "final_stats", None)
+            self._torn_down_in_s = getattr(loop, "torn_down_in_s", None)
+
     # ------------------------------------------------------------------
     def final_state(self):
         """Host copy of the step stage's final state. Valid after
-        ``run()`` returned (the actor is idle)."""
+        ``run()`` returned (the loop is torn down; the actor is idle)."""
         return ray.get(self._group.step.state_snapshot.remote(), timeout=300)

@@ -20,9 +20,13 @@ class DataParallelTrainer:
     ``train_loop_per_worker`` is either the classic closure (eager,
     ``train.report()``-driven — the default path) or a
     :class:`~ray_tpu_torch.train.TrainLoopConfig` structured step spec:
-    data-loader → train-step → checkpoint-snapshot stage actors, driven
-    eagerly (one dispatch chain per step). The compiled loop
-    (``use_compiled_loop=True``) is not ported yet and raises.
+    data-loader → train-step → checkpoint-snapshot stage actors, parked
+    once on a persistent compiled loop (``dag/loop.py``; the default) so
+    steady-state steps are a ring write and read with no RPC or lease
+    traffic per step and the async checkpoint commit overlaps the next
+    steps' compute, or driven eagerly (``use_compiled_loop=False``: one
+    dispatch chain per step). Both drives are byte-identical at a fixed
+    seed.
 
     ``use_compiled_loop``: ``None`` (default) defers to
     ``TrainLoopConfig.use_compiled_loop``; ignored for closure specs.

@@ -1,7 +1,7 @@
 """The port's Train library (``ray_tpu_torch.train``) on a port cluster,
 on the CPU: ranks and shards of two workers, ``report(checkpoint=)`` in
-run storage, the eager stage drive of ``TrainLoopConfig`` (the compiled
-loop raises) and ``ScalingConfig``'s ``GPU`` default."""
+run storage, ``TrainLoopConfig``'s eager and compiled-loop drives
+alike, and ``ScalingConfig``'s ``GPU`` default."""
 
 import json
 import os
@@ -104,8 +104,7 @@ def _loop_spec(**kw) -> TrainLoopConfig:
                            data_fn=data_fn, snapshot_every=2, **kw)
 
 
-def test_train_loop_config_runs_eagerly_and_the_compiled_loop_raises(
-        cluster, tmp_path):
+def test_train_loop_config_runs_eager_and_compiled_alike(cluster, tmp_path):
     result = DataParallelTrainer(
         _loop_spec(use_compiled_loop=False), scaling_config=CPU,
         run_config=RunConfig(name="loop", storage_path=str(tmp_path))).fit()
@@ -116,13 +115,23 @@ def test_train_loop_config_runs_eagerly_and_the_compiled_loop_raises(
     tree, meta = load_checkpoint(result.checkpoint.path)
     assert meta["step"] == 3 and tree["n"] == 4
     assert torch.equal(tree["w"], torch.tensor([12.0, 16.0, 12.0, 16.0]))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        DataParallelTrainer(_loop_spec(), scaling_config=CPU).fit()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        DataParallelTrainer(_loop_spec(use_compiled_loop=False),
-                            scaling_config=CPU, use_compiled_loop=True).fit()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TrainLoopRunner(None, _loop_spec())
+    # The default drive is the compiled loop: the same stages parked over
+    # shm rings give the same metrics, commits and checkpoint tree.
+    compiled = DataParallelTrainer(
+        _loop_spec(), scaling_config=CPU,
+        run_config=RunConfig(name="compiled",
+                             storage_path=str(tmp_path))).fit()
+    assert compiled.error is None, compiled.error
+    assert compiled.loop_stats["mode"] == "loop"
+    assert compiled.metrics_history == result.metrics_history
+    assert compiled.loop_stats["ckpt_commits"] == 2
+    tree_l, meta_l = load_checkpoint(compiled.checkpoint.path)
+    assert meta_l["step"] == meta["step"] and tree_l["n"] == tree["n"]
+    assert torch.equal(tree_l["w"], tree["w"])
+    # the trainer's argument overrides the spec's default, both ways
+    runner = TrainLoopRunner(None, _loop_spec(), use_compiled_loop=False)
+    assert runner.use_compiled_loop is False
+    assert TrainLoopRunner(None, _loop_spec()).use_compiled_loop is True
 
 
 def test_scaling_config_defaults_to_a_gpu_and_topology_raises():
