@@ -216,7 +216,54 @@ Phases, each printing JSON lines:
                 ``debug-128`` app over HTTP must answer what an in-process
                 ``LLMDeployment`` on the card answers, and after
                 ``serve.shutdown()`` and ``shutdown()`` no worker process
-                may be left.
+                may be left;
+  disagg_app    the rest of the serve leg on one new cluster, first
+                ``build_llm_app("llama3-1b", ...,
+                serve_disaggregation="prefill_decode")`` in the ``serve``
+                geometry, a prefill and a decode replica each leased half
+                of the card (``num_gpus=0.5``), both on ``cuda`` in
+                processes of their own; ``serve.status()`` shows the
+                pools; ``serve_app``'s 8 prompts streamed at once over
+                HTTP, then 8 of the same lengths and new text (the first
+                wave meets both replicas cold): each finishes, each
+                leaves one complete
+                ``llm.kv_migrate`` span of kind ``disagg_handoff`` with
+                cached tokens (read through ``util.state.list_spans``),
+                the decode replica imports 8 handoffs and launches the
+                split kernel 16 times a decode step, the prefill replica
+                launches none and decodes nothing, and both pools return
+                to their baseline (no page pinned); TTFT, tokens per
+                second and the start time beside ``serve_app``'s;
+  disagg_parity f32 ``debug-128``: a disaggregated app's text over HTTP,
+                plain and streamed, equals an in-process unified
+                ``LLMDeployment``'s; then two unified replicas (half the
+                card each) and an affinity spill between them: equal
+                text, one spill migration, pages imported on the target;
+  fleet_app     llama3-1b under ``autoscaling_config`` (1 to 2 replicas,
+                scale to zero after 5 s idle), half the card a replica:
+                one request, the park (0 running, a standby with its
+                weights in host RAM, still healthy, read through
+                ``util.state.serve_fleet``), and a request that wakes it
+                from the standby (``host``, ``stream`` or ``resident``;
+                ``scale_to_zero`` and ``wake`` events); the wake's TTFT,
+                and the launches summed over every replica the state API
+                lists;
+  batch         ``build_llm_processor`` of llama3-1b (8 slots, max_len
+                1,024, batches of 16) over ``data.from_items`` of 32 rows
+                with a per-row ``max_tokens`` column, on one engine actor
+                leased the whole card: every row generates no more than
+                its column, and the actor counts its own launches; then
+                an f32 ``debug-128`` processor whose texts equal the same
+                engine worker's run in this process on the same batch;
+                no worker process may be left after ``shutdown()``;
+  fleet_ladder  the promotion ladder on an in-process llama3-1b
+                ``LLMDeployment`` on the card: ``open_weight_stream``,
+                ``fleet_demote`` and ``fleet_promote(address)`` (path
+                ``stream``, the donor's fingerprint); a donor dying after
+                one chunk (path ``host``); a dead address with the host
+                copy lost (path ``cold_init``: the seed's weights, the
+                donor's fingerprint again); a request served after each,
+                each rung's seconds.
 
 Then a JSON line of the kernels, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -3460,7 +3507,8 @@ def _http(addr: str, method: str, path: str, body: dict | None = None):
     return json.loads(data)
 
 
-def _http_stream(addr: str, body: dict) -> dict:
+def _http_stream(addr: str, body: dict,
+                 path: str = "/v1/completions") -> dict:
     """One ``"stream": true`` completion over HTTP, read event by event:
     the client-side TTFT (send to the first token's event), the wall
     time, the token events' text and the finish reason."""
@@ -3470,7 +3518,7 @@ def _http_stream(addr: str, body: dict) -> dict:
     ttft = None
     chunks = []
     try:
-        conn.request("POST", "/v1/completions",
+        conn.request("POST", path,
                      body=json.dumps({**body, "stream": True}),
                      headers={"content-type": "application/json"})
         resp = conn.getresponse()
@@ -3502,6 +3550,13 @@ def _port_row(handle) -> dict:
         timeout=120)
 
 
+def _launch_delta(before: dict, after: dict) -> dict:
+    """Paged launches between two ``engine_metrics()`` rows, by kernel."""
+    return {name: (after["port"]["kernel_launches"][key]
+                   - before["port"]["kernel_launches"][key])
+            for name, key in APP_KERNEL_KEYS.items()}
+
+
 def _worker_pids() -> list:
     pids = []
     for entry in os.listdir("/proc"):
@@ -3521,12 +3576,13 @@ def _strip(body: dict) -> dict:
     return {k: v for k, v in body.items() if k not in ("id", "created")}
 
 
-def phase_serve_app(serve_stats: dict, seed: int = 0) -> dict:
+def phase_serve_app(serve_stats: dict, seed: int = 0) -> tuple[dict, dict]:
     """The LLM app through the port's runtime and Serve: a llama3-1b
     replica in a worker process leased the card, 8 concurrent streamed
     completions over HTTP, then a plain and a streamed completion of one
     prompt, a chat completion, and the f32 parity app. Returns the paged
-    kernels' launches counted in the replica over the 8 requests."""
+    kernels' launches counted in the replica over the 8 requests, and the
+    HTTP run's TTFT, throughput and start time."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
     from ray_tpu_torch.llm import LLMDeployment, build_llm_app
@@ -3579,10 +3635,7 @@ def phase_serve_app(serve_stats: dict, seed: int = 0) -> dict:
         wall = time.perf_counter() - t1
         after = _port_row(handle)
         steps = after["decode_steps"] - before["decode_steps"]
-        launches = {
-            name: (after["port"]["kernel_launches"][key]
-                   - before["port"]["kernel_launches"][key])
-            for name, key in APP_KERNEL_KEYS.items()}
+        launches = _launch_delta(before, after)
         on_route = paged_kernel_of(cfg.dtype)
         expected = {name: cfg.n_layers * steps if name == on_route else 0
                     for name in APP_KERNEL_KEYS}
@@ -3611,12 +3664,17 @@ def phase_serve_app(serve_stats: dict, seed: int = 0) -> dict:
         if chat["object"] != "chat.completion" or \
                 chat["usage"]["completion_tokens"] <= 0:
             raise AssertionError(f"chat: {chat}")
+        app_stats = {"ttft_p50_ms": float(np.median(ttft)),
+                     "ttft_max_ms": float(max(ttft)),
+                     "output_tok_per_s": n_tokens / wall,
+                     "app_start_s": start_s}
         emit("serve_app", preset=APP_PRESET, requests=len(runs),
              output_tokens=n_tokens, wall_s=wall, init_s=init_s,
              app_start_s=start_s,
-             ttft_p50_ms=float(np.median(ttft)), ttft_max_ms=float(max(ttft)),
+             ttft_p50_ms=app_stats["ttft_p50_ms"],
+             ttft_max_ms=app_stats["ttft_max_ms"],
              ttft_ms={k: r["ttft_ms"] for k, r in runs.items()},
-             output_tok_per_s=n_tokens / wall,
+             output_tok_per_s=app_stats["output_tok_per_s"],
              http_hop_p50_ms=float(np.median(hop_ms)),
              in_process_serve={k: serve_stats[k] for k in (
                  "ttft_p50_ms", "ttft_max_ms", "output_tok_per_s",
@@ -3675,6 +3733,612 @@ def phase_serve_app(serve_stats: dict, seed: int = 0) -> dict:
         raise AssertionError(f"worker processes left after shutdown: {left}")
     emit("serve_app_shutdown", workers_left=0,
          total_s=time.perf_counter() - t0)
+    return launches, app_stats
+
+
+# ------------------------------------------------------------- serve leg
+# The rest of the serve leg on the port's runtime: the prefill and decode
+# pools on one card (each replica leased half of it), spill migration
+# between two unified replicas, the fleet's park and wake, its promotion
+# ladder, and Data batch inference on an engine actor leased the card.
+HALF_CARD = {"num_gpus": 0.5}
+FLEET_IDLE_S = 5.0
+FLEET_TIMEOUT_S = 120.0
+LADDER_GEOMETRY = dict(max_slots=2, max_len=256, page_size=PAGE,
+                       prefill_chunk_size=128, decode_steps_per_dispatch=8)
+BATCH_ROWS, BATCH_NEW = 32, 32
+SPAN_WAIT_S = 20.0
+
+
+def _serve_geometry() -> dict:
+    return dict(max_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
+                prefill_chunk_size=CHUNK, decode_steps_per_dispatch=STEPS)
+
+
+def _on_route_only(launches: dict, dtype) -> bool:
+    """The kernel ``paged_route`` names for ``dtype`` ran and the other did
+    not (all zero where ``paged_kernel_of`` names none)."""
+    on_route = paged_kernel_of(dtype)
+    return all(v > 0 if k == on_route else v == 0
+               for k, v in launches.items())
+
+
+def _check_on_card(row: dict, what: str) -> None:
+    port = row["port"]
+    if port["pid"] == os.getpid():
+        raise AssertionError(f"{what} runs in the driver's process")
+    if APP_DEVICE is None and not port["device"].startswith("cuda"):
+        raise AssertionError(f"{what}'s engine on {port['device']}")
+
+
+def _pool_idle(handle, baseline: dict, what: str) -> dict:
+    """Wait until ``what``'s pool is back at ``baseline``: no request in
+    any stage, no page pinned, every page free or cached."""
+    deadline = time.monotonic() + 20.0
+    while True:
+        pool = handle.options(method_name="pool_stats").remote().result(
+            timeout=60)
+        back = (pool["pinned"] == 0 and pool["active_slots"] == 0
+                and pool["prefilling"] == 0 and pool["waiting"] == 0
+                and pool["free"] + pool["cached"] == baseline["free"])
+        if back:
+            return pool
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what} pool {pool} not back at {baseline}")
+        time.sleep(0.2)
+
+
+def _sse_text(items) -> str:
+    """The token text of an in-process SSE completion, event by event as
+    a client joins it (each token's bytes decoded alone)."""
+    text = ""
+    for item in items:
+        if isinstance(item, str) and item.startswith("data: ") \
+                and item.strip() != "data: [DONE]":
+            text += json.loads(item[len("data: "):])["choices"][0]["text"]
+    return text
+
+
+def _handoff_spans(n: int) -> list:
+    """The ``llm.kv_migrate`` spans of kind ``disagg_handoff`` in the GCS
+    span store, read through the port's state API (flushed each second);
+    waits for ``n`` of them."""
+    from ray_tpu_torch.util.state import list_spans
+
+    deadline = time.monotonic() + SPAN_WAIT_S
+    while True:
+        spans = [sp for sp in list_spans(limit=100_000)
+                 if sp.get("name") == "llm.kv_migrate"
+                 and sp["attrs"].get("kind") == "disagg_handoff"]
+        if len(spans) >= n or time.monotonic() > deadline:
+            return spans
+        time.sleep(0.5)
+
+
+def _disagg_app(app_stats: dict, seed: int) -> dict:
+    """llama3-1b's prefill and decode pools, one replica each on half of
+    the card, two waves of 8 streamed requests at once over HTTP. Returns
+    the decode replica's paged launches."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import build_llm_app
+
+    cfg = PRESETS[APP_PRESET]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve.run(build_llm_app(
+        APP_PRESET, serve_disaggregation="prefill_decode", num_replicas=1,
+        prefill_replicas=1, ray_actor_options=HALF_CARD, device=APP_DEVICE,
+        **_serve_geometry()),
+        name="llm-disagg", timeout_s=APP_START_TIMEOUT_S)
+    start_s = time.perf_counter() - t0
+    addr = serve.http_address()
+    pools = {name: d.get("pool")
+             for name, d in serve.status()["llm-disagg"].items()}
+    if pools != {"llm-decode": "decode", "llm-prefill": "prefill"}:
+        raise AssertionError(f"pools {pools}")
+    handles = {role: serve.get_deployment_handle(f"llm-{role}", "llm-disagg")
+               for role in ("prefill", "decode")}
+    before = {role: _port_row(h) for role, h in handles.items()}
+    for role, row in before.items():
+        _check_on_card(row, f"the {role} replica")
+        if row["role"] != role:
+            raise AssertionError(f"llm-{role} reports role {row['role']}")
+    if before["prefill"]["port"]["pid"] == before["decode"]["port"]["pid"]:
+        raise AssertionError("both pools in one process")
+    pools0 = {role: h.options(method_name="pool_stats").remote().result(
+        timeout=60) for role, h in handles.items()}
+
+    def wave(rng_seed: int) -> tuple:
+        prompts = _app_prompts(np.random.default_rng(rng_seed))
+        t = time.perf_counter()
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            runs = dict(zip(prompts, pool.map(
+                lambda p: _http_stream(addr, {"prompt": p,
+                                              "max_tokens": APP_NEW,
+                                              "temperature": 0.0}),
+                prompts.values())))
+        return runs, time.perf_counter() - t
+
+    # the first wave meets both replicas cold, as serve_app's does; the
+    # second sends prompts of the same lengths and new text
+    waves = [wave(seed), wave(seed + 1)]
+    after = {role: _port_row(h) for role, h in handles.items()}
+    launches = {role: _launch_delta(before[role], after[role])
+                for role in handles}
+    n_requests = sum(len(runs) for runs, _ in waves)
+    for name, r in [(k, r) for runs, _ in waves for k, r in runs.items()]:
+        if not (r["tokens"] == APP_NEW or r["finish_reason"] == "stop"):
+            raise AssertionError(f"disagg {name}: {r['tokens']} tokens, "
+                                 f"finish {r['finish_reason']}")
+    steps = after["decode"]["decode_steps"] - before["decode"]["decode_steps"]
+    on_route = paged_kernel_of(cfg.dtype)
+    expected = {name: cfg.n_layers * steps if name == on_route else 0
+                for name in APP_KERNEL_KEYS}
+    if launches["decode"] != expected or steps <= 0:
+        raise AssertionError(f"decode replica launches {launches['decode']}"
+                             f" != {expected} ({steps} decode steps)")
+    # no request fell back to local serving in the prefill pool
+    if any(launches["prefill"].values()) or \
+            after["prefill"]["decode_steps"] != before["prefill"]["decode_steps"]:
+        raise AssertionError(f"the prefill replica decoded: "
+                             f"{launches['prefill']}")
+    migrations = (after["decode"]["kv_migrations_in"]
+                  - before["decode"]["kv_migrations_in"])
+    if migrations != n_requests:
+        raise AssertionError(f"decode replica imported {migrations} of "
+                             f"{n_requests} handoffs")
+    spans = _handoff_spans(n_requests)
+    if len(spans) != n_requests or \
+            len({sp["trace_id"] for sp in spans}) != n_requests or \
+            not all(sp["attrs"].get("complete")
+                    and (sp["attrs"].get("cached_tokens") or 0) > 0
+                    for sp in spans):
+        raise AssertionError(f"handoff spans: {[sp['attrs'] for sp in spans]}")
+    idle = {role: _pool_idle(h, pools0[role], f"the {role} replica")
+            for role, h in handles.items()}
+    stats = []
+    for runs, wall in waves:
+        ttft = [r["ttft_ms"] for r in runs.values()]
+        n_tokens = sum(r["tokens"] for r in runs.values())
+        stats.append({"requests": len(runs), "output_tokens": n_tokens,
+                      "wall_s": wall, "ttft_p50_ms": float(np.median(ttft)),
+                      "ttft_max_ms": float(max(ttft)),
+                      "ttft_ms": {k: r["ttft_ms"] for k, r in runs.items()},
+                      "output_tok_per_s": n_tokens / wall})
+    emit("disagg_app", preset=APP_PRESET, app_start_s=start_s,
+         **stats[0], warm_wave=stats[1],
+         serve_app={k: app_stats[k] for k in (
+             "ttft_p50_ms", "ttft_max_ms", "output_tok_per_s",
+             "app_start_s")},
+         pools=pools,
+         replica_pids={role: row["port"]["pid"]
+                       for role, row in after.items()},
+         replica_devices={role: row["port"]["device"]
+                          for role, row in after.items()},
+         kernel_launches=launches, expected_decode_launches=expected,
+         decode_steps=steps, kv_migrations_in=migrations,
+         kv_pages_exported=(after["prefill"]["kv_pages_exported"]
+                            - before["prefill"]["kv_pages_exported"]),
+         kv_pages_imported=(after["decode"]["kv_pages_imported"]
+                            - before["decode"]["kv_pages_imported"]),
+         handoff_spans=len(spans),
+         handoffs=sorted((sp["attrs"]["cached_tokens"],
+                          sp["attrs"]["seconds"], sp["start"])
+                         for sp in spans),
+         pools_after=idle)
+    serve.delete("llm-disagg")
+    return launches["decode"]
+
+
+def _disagg_parity() -> dict:
+    """f32 ``debug-128``: the disaggregated app's text, plain and
+    streamed, equals an in-process unified deployment's; an affinity spill
+    between two unified replicas imports the group's pages. Returns the
+    disaggregated app's decode replica's paged launches."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.config import get_config
+    from ray_tpu_torch.llm import LLMDeployment, build_llm_app
+
+    cfg32 = dataclasses.replace(PRESETS[APP_PARITY_PRESET],
+                                dtype=torch.float32)
+    common = dict(model_id=APP_PARITY_PRESET, device=APP_DEVICE,
+                  **APP_PARITY_GEOMETRY)
+    serve.run(build_llm_app(
+        cfg32, serve_disaggregation="prefill_decode",
+        ray_actor_options=HALF_CARD, **common),
+        name="llm-disagg-f32", timeout_s=APP_START_TIMEOUT_S)
+    addr = serve.http_address()
+    local = LLMDeployment(cfg32, **{**common, "device": DEVICE})
+    try:
+        compared = 0
+        for prompt in ("The quick brown fox", "hello disaggregated world"):
+            body = {"prompt": prompt, "max_tokens": 24}
+            want = _strip(local.completions(dict(body)))
+            want_streamed = _sse_text(local.completions({**body,
+                                                         "stream": True}))
+            got = _strip(_http(addr, "POST", "/v1/completions", body))
+            streamed = _http_stream(addr, body)
+            if got != want or streamed["text"] != want_streamed:
+                raise AssertionError(f"f32 disagg {got} / {streamed} != "
+                                     f"unified {want} / {want_streamed}")
+            compared += 1
+    finally:
+        local.close()
+    decode = _port_row(serve.get_deployment_handle("llm-decode",
+                                                   "llm-disagg-f32"))
+    if decode["kv_migrations_in"] != 2 * compared:
+        raise AssertionError(f"f32 decode replica imported "
+                             f"{decode['kv_migrations_in']} handoffs")
+    serve.delete("llm-disagg-f32")
+
+    serve.run(build_llm_app(cfg32, num_replicas=2,
+                            ray_actor_options=HALF_CARD, **common),
+              name="llm-spill", timeout_s=APP_START_TIMEOUT_S)
+    h = serve.get_app_handle("llm-spill").options(
+        method_name="completions", prefix_group="grp-mig")
+    body = {"prompt": "You are a helpful assistant. " * 4 + " tail",
+            "max_tokens": 16}
+    out1 = h.remote(dict(body)).result(timeout=120)
+    router = h._get_router()
+    affine = router._group_affinity["grp-mig"]
+    bump = get_config().serve_affinity_spill_margin + 1
+    with router._cond:
+        router._inflight[affine] += bump
+    try:
+        out2 = h.remote(dict(body)).result(timeout=120)
+    finally:
+        with router._cond:
+            router._inflight[affine] -= bump
+    target = _port_row(h)  # routed by the group: the spill's target
+    if out2["choices"][0]["text"] != out1["choices"][0]["text"] or \
+            router.spill_migrations != 1 or \
+            router._group_affinity["grp-mig"] == affine or \
+            target["kv_pages_imported"] < 1:
+        raise AssertionError(
+            f"spill: equal {out2 == out1}, spill_migrations "
+            f"{router.spill_migrations}, pages imported "
+            f"{target['kv_pages_imported']}")
+    emit("disagg_parity", preset=APP_PARITY_PRESET, dtype="float32",
+         prompts=compared, plain_and_streamed_equal=True,
+         decode_kv_migrations_in=decode["kv_migrations_in"],
+         decode_kernel_launches=decode["port"]["kernel_launches"],
+         spill_text_equal=True, spill_migrations=router.spill_migrations,
+         spill_target_kv_pages_imported=target["kv_pages_imported"],
+         spill_target_kv_migrations_in=target["kv_migrations_in"])
+    serve.delete("llm-spill")
+    return {name: decode["port"]["kernel_launches"][key]
+            for name, key in APP_KERNEL_KEYS.items()}
+
+
+def _fleet_status(app: str) -> dict:
+    from ray_tpu_torch.util.state import serve_fleet
+
+    return serve_fleet().get(f"{app}#LLMDeployment") or {}
+
+
+def _fleet_wait(app: str, pred) -> dict:
+    deadline = time.monotonic() + FLEET_TIMEOUT_S
+    while time.monotonic() < deadline:
+        row = _fleet_status(app)
+        if row and pred(row):
+            return row
+        time.sleep(0.25)
+    raise AssertionError(f"fleet {app}: {_fleet_status(app)}")
+
+
+def _replica_rows(skip: set) -> dict:
+    """``engine_metrics()`` of every live replica actor whose id is not in
+    ``skip``, by actor id, found through the state API (a deployment under
+    scale-to-zero keeps a standby replica that no routing table lists).
+    Replicas are the unnamed actors; Serve's controller and proxy are
+    named."""
+    from ray_tpu_torch.core import api
+    from ray_tpu_torch.util.state import list_actors
+
+    rows = {}
+    for actor in list_actors():
+        if actor["state"] != "ALIVE" or actor["name"] \
+                or actor["actor_id"] in skip:
+            continue
+        handle = api.ActorHandle(bytes.fromhex(actor["actor_id"]))
+        try:
+            row = api.get(handle.handle_request.remote(
+                "engine_metrics", (), {}), timeout=30)
+        except Exception:  # not a replica
+            continue
+        if isinstance(row, dict) and "port" in row:
+            rows[actor["actor_id"]] = row
+    return rows
+
+
+def _launch_sum(rows: dict) -> dict:
+    return {name: sum(r["port"]["kernel_launches"][key]
+                      for r in rows.values())
+            for name, key in APP_KERNEL_KEYS.items()}
+
+
+def _fleet_app() -> dict:
+    """llama3-1b behind scale-to-zero: one request, the park (0 running,
+    a standby with its weights in host RAM, still healthy), and the wake
+    of the next request from the standby."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import build_llm_app
+    from ray_tpu_torch.util.state import list_actors
+
+    torch.cuda.empty_cache()
+    others = {a["actor_id"] for a in list_actors()}
+    serve.run(build_llm_app(
+        APP_PRESET, ray_actor_options=HALF_CARD, device=APP_DEVICE,
+        autoscaling_config={"min_replicas": 1, "max_replicas": 2,
+                            "scale_to_zero_idle_s": FLEET_IDLE_S},
+        **_serve_geometry()),
+        name="fleet", timeout_s=APP_START_TIMEOUT_S)
+    addr = serve.http_address()
+    before = _launch_sum(_replica_rows(others))
+    body = {"prompt": "the always warm fleet", "max_tokens": APP_NEW}
+    first = _http_stream(addr, body)
+    served = _replica_rows(others)
+    for row in served.values():
+        _check_on_card(row, "a fleet replica")
+    t0 = time.perf_counter()
+    parked = _fleet_wait("fleet", lambda r: r.get("scaled_to_zero")
+                         and r.get("running") == 0
+                         and (r.get("standby") or 0) >= 1
+                         and r["fleet"].get("host_resident", 0) >= 1)
+    park_s = time.perf_counter() - t0
+    if not serve.status()["fleet"]["LLMDeployment"]["healthy"]:
+        raise AssertionError("the parked deployment is not healthy")
+    wake = _http_stream(addr, body)
+    woke = _fleet_wait("fleet", lambda r: not r.get("scaled_to_zero")
+                       and (r.get("running") or 0) >= 1)
+    promote = woke.get("last_promote") or {}
+    if promote.get("path") not in ("host", "stream", "resident"):
+        raise AssertionError(f"wake promoted by {promote}")
+    events = serve.status()["fleet"]["LLMDeployment"]["autoscale_events"]
+    triggers = [e["trigger"] for e in events]
+    if "scale_to_zero" not in triggers or "wake" not in triggers:
+        raise AssertionError(f"autoscale events {triggers}")
+    after = _replica_rows(others)
+    total = _launch_sum(after)
+    launches = {k: v - before[k] for k, v in total.items()}
+    # a replica that started after the first request counts from 0
+    woke_launches = {k: v - _launch_sum(served)[k] for k, v in total.items()}
+    for name, r in (("first", first), ("wake", wake)):
+        if not (r["tokens"] == APP_NEW or r["finish_reason"] == "stop"):
+            raise AssertionError(f"fleet {name}: {r['tokens']} tokens")
+    if not _on_route_only(woke_launches, PRESETS[APP_PRESET].dtype):
+        raise AssertionError(f"the wake's launches {woke_launches}")
+    emit("fleet_app", preset=APP_PRESET, idle_s=FLEET_IDLE_S,
+         first_ttft_ms=first["ttft_ms"], park_s=park_s,
+         parked={k: parked.get(k) for k in ("running", "standby",
+                                            "scaled_to_zero", "fleet")},
+         wake_ttft_ms=wake["ttft_ms"], wake_wall_s=wake["wall_s"],
+         last_promote=promote, autoscale_triggers=triggers,
+         replicas={row["port"]["pid"]: {
+             k: row[k] for k in ("decode_steps", "weights_demoted",
+                                 "weights_promoted", "weight_promote_ms")}
+             for row in after.values()},
+         kernel_launches=launches, wake_kernel_launches=woke_launches)
+    serve.delete("fleet")
+    return launches
+
+
+def _counting_engine_worker():
+    """The batch stage's engine actor class, reporting its own process's
+    paged launches in two extra columns (read by the postprocess)."""
+    from ray_tpu_torch.llm import batch as batch_mod
+
+    class CountingEngineWorker(batch_mod._EngineWorker):
+        def __call__(self, batch: dict) -> dict:
+            from ray_tpu_torch.ops.paged_attention import (
+                paged_decode_kernel, paged_decode_split_kernel)
+
+            out = super().__call__(batch)
+            n = len(out["generated_text"])
+            out["launches_split"] = [paged_decode_split_kernel.launches] * n
+            out["launches_single"] = [paged_decode_kernel.launches] * n
+            out["device"] = [str(self.engine.executor.device)] * n
+            out["pid"] = [os.getpid()] * n
+            return out
+
+    return CountingEngineWorker
+
+
+def _run_processor(config, rows: list) -> list:
+    """``build_llm_processor(config)`` over ``rows``, its engine actor the
+    counting subclass; rows sorted by id."""
+    from ray_tpu_torch import data
+    from ray_tpu_torch.llm import batch as batch_mod
+    from ray_tpu_torch.llm import build_llm_processor
+
+    def pre(row):
+        return {"prompt": row["prompt"], "max_tokens": row["max_tokens"],
+                "id": row["id"]}
+
+    def post(row):
+        return {"id": row["id"], "max_tokens": row["max_tokens"],
+                "text": row["generated_text"],
+                "n": row["num_generated_tokens"],
+                "launches_split": row["launches_split"],
+                "launches_single": row["launches_single"],
+                "device": row["device"], "pid": row["pid"]}
+
+    real = batch_mod._EngineWorker
+    batch_mod._EngineWorker = _counting_engine_worker()
+    try:
+        processor = build_llm_processor(config, preprocess=pre,
+                                        postprocess=post)
+        out = processor(data.from_items(rows, parallelism=1)).take_all()
+    finally:
+        batch_mod._EngineWorker = real
+    return sorted(out, key=lambda r: r["id"])
+
+
+def _batch(seed: int) -> dict:
+    """Data batch inference: llama3-1b over 32 rows with a per-row
+    ``max_tokens`` column on an engine actor leased the card; then an f32
+    ``debug-128`` processor whose texts equal the same engine worker run
+    in this process on the same batch."""
+    from ray_tpu_torch.llm import LLMProcessorConfig
+    from ray_tpu_torch.llm.batch import _EngineWorker
+
+    cfg = PRESETS[APP_PRESET]
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+    rows = [{"id": i,
+             "prompt": bytes(rng.choice(letters, 16 + 24 * (i % 8))).decode(),
+             "max_tokens": 8 * (1 + i % 4)} for i in range(BATCH_ROWS)]
+    config = LLMProcessorConfig(preset=APP_PRESET, concurrency=1,
+                                batch_size=16, max_slots=8, max_len=1024,
+                                max_tokens=BATCH_NEW, device=APP_DEVICE)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = _run_processor(config, rows)
+    wall = time.perf_counter() - t0
+    if [r["id"] for r in out] != list(range(BATCH_ROWS)):
+        raise AssertionError(f"batch rows {[r['id'] for r in out]}")
+    pids = {r["pid"] for r in out}
+    if pids == {os.getpid()} or len(pids) != 1 or (
+            APP_DEVICE is None
+            and not all(r["device"].startswith("cuda") for r in out)):
+        raise AssertionError(f"engine actor {pids} on "
+                             f"{sorted({r['device'] for r in out})}")
+    short = [r["id"] for r in out if r["n"] < r["max_tokens"]]
+    if any(r["n"] > r["max_tokens"] or r["n"] < 1 for r in out) or \
+            len(short) > 2:
+        raise AssertionError(f"num_generated_tokens against the column: "
+                             f"{[(r['n'], r['max_tokens']) for r in out]}")
+    launches = {
+        "paged_decode_attention_split": max(r["launches_split"] for r in out),
+        "paged_decode_attention_single": max(r["launches_single"]
+                                             for r in out)}
+    if not _on_route_only(launches, cfg.dtype):
+        raise AssertionError(f"batch actor launches {launches}")
+    n_tokens = sum(r["n"] for r in out)
+
+    cfg32 = dataclasses.replace(PRESETS[APP_PARITY_PRESET],
+                                dtype=torch.float32)
+    config32 = LLMProcessorConfig(preset=cfg32, concurrency=1,
+                                  batch_size=BATCH_ROWS, max_slots=4,
+                                  max_len=256, max_tokens=16,
+                                  device=APP_DEVICE)
+    rows32 = [{**r, "max_tokens": 4 + r["id"] % 13} for r in rows[:12]]
+    got32 = _run_processor(config32, rows32)
+    local = _EngineWorker(dataclasses.replace(config32, device=DEVICE))
+    want32 = local({"prompt": np.array([r["prompt"] for r in rows32],
+                                       dtype=object),
+                    "max_tokens": np.array([r["max_tokens"]
+                                            for r in rows32])})
+    del local
+    if [r["text"] for r in got32] != list(want32["generated_text"]) or \
+            [r["n"] for r in got32] != list(want32["num_generated_tokens"]):
+        raise AssertionError(f"f32 batch {[r['text'] for r in got32]} != "
+                             f"in-process {want32['generated_text']}")
+    emit("batch", preset=APP_PRESET, rows=len(out), output_tokens=n_tokens,
+         wall_s=wall, rows_per_s=len(out) / wall,
+         output_tok_per_s=n_tokens / wall, rows_short_of_column=short,
+         actor_pid=pids.pop(), actor_device=out[0]["device"],
+         kernel_launches=launches,
+         f32_parity={"preset": APP_PARITY_PRESET, "rows": len(got32),
+                     "texts_equal": True})
+    return launches
+
+
+def phase_serve_leg(app_stats: dict, seed: int = 0) -> dict:
+    """The rest of the serve leg through the port's runtime, on one
+    cluster: ``disagg_app``, ``disagg_parity``, ``fleet_app`` and
+    ``batch``; then no worker may be left. Returns each phase's paged
+    launches, counted in the process that decoded."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    t0 = time.perf_counter()
+    seconds = {}
+    launches = {}
+    rt.init()
+    try:
+        for name, run in (("disagg_app", lambda: _disagg_app(app_stats, seed)),
+                          ("disagg_parity", _disagg_parity),
+                          ("fleet_app", _fleet_app)):
+            t = time.perf_counter()
+            launches[name] = run()
+            seconds[name] = time.perf_counter() - t
+        serve.shutdown()  # the batch actor takes the whole card
+        t = time.perf_counter()
+        launches["batch"] = _batch(seed)
+        seconds["batch"] = time.perf_counter() - t
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    deadline = time.monotonic() + 20.0
+    while _worker_pids() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _worker_pids()
+    if left:
+        raise AssertionError(f"worker processes left after shutdown: {left}")
+    emit("serve_leg", phase_seconds=seconds, workers_left=0,
+         total_s=time.perf_counter() - t0)
+    return launches
+
+
+def phase_fleet_ladder(seed: int = 0) -> dict:
+    """The promotion ladder on an in-process llama3-1b deployment on the
+    card: a donor's broadcast stream, the host copy when the donor dies
+    after one chunk, and the cold re-init from the seed when the donor is
+    unreachable and the host copy lost, each rung proved by the weights'
+    fingerprint (the re-init's equals the donor's), and a request served
+    after each."""
+    from ray_tpu_torch.llm import LLMDeployment
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dep = LLMDeployment(APP_PRESET, seed=seed, device=DEVICE,
+                        **LADDER_GEOMETRY)
+    reset_paged_launches()
+    prompts = iter(f"promotion ladder, rung {i}" for i in range(8))
+
+    def serves() -> bool:
+        return dep.generate(next(prompts), 16)["num_generated"] == 16
+
+    try:
+        rungs = {"before": {"ok": serves(), "path": "before"}}
+        donor = dep.open_weight_stream(n_readers=1)
+        want = donor["fingerprint"]
+        if not dep.fleet_demote()["ok"]:
+            raise AssertionError("demotion refused")
+        rungs["stream"] = dep.fleet_promote(donor["weight_address"])
+        rungs["stream"]["fingerprint_equal"] = \
+            params_fingerprint(dep.engine.executor.params) == want
+        rungs["stream"]["serves"] = serves()
+        dying = dep.open_weight_stream(n_readers=1, _die_after_chunks=1)
+        if not dep.fleet_demote()["ok"]:
+            raise AssertionError("demotion refused")
+        rungs["host"] = dep.fleet_promote(dying["weight_address"])
+        rungs["host"]["serves"] = serves()
+        if not dep.fleet_demote()["ok"]:
+            raise AssertionError("demotion refused")
+        dep.engine._host_params = None  # the host tier is lost
+        rungs["cold_init"] = dep.fleet_promote("127.0.0.1:1")
+        rungs["cold_init"]["fingerprint_equal"] = \
+            params_fingerprint(dep.engine.executor.params) == want
+        rungs["cold_init"]["serves"] = serves()
+        launches = paged_launches()
+    finally:
+        dep.close()
+    for path, out in rungs.items():
+        if not (out["ok"] and out["path"] == path
+                and out.get("fingerprint_equal", True)
+                and out.get("serves", True)):
+            raise AssertionError(f"ladder rung {path}: {out}")
+    if not _on_route_only(launches, PRESETS[APP_PRESET].dtype):
+        raise AssertionError(f"ladder launches {launches}")
+    emit("fleet_ladder", preset=APP_PRESET, fingerprint=want,
+         rungs=rungs, kernel_launches=launches,
+         seconds=time.perf_counter() - t0)
+    del dep
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3733,7 +4397,9 @@ def main() -> int:
     mig_parity_launches = phase_migrate_parity()
     mig_launches = phase_migrate()
     weights_launches = phase_weights()
-    app_launches = phase_serve_app(serve_stats)
+    app_launches, app_stats = phase_serve_app(serve_stats)
+    leg = phase_serve_leg(app_stats)
+    ladder_launches = phase_fleet_ladder()
     kernels = []
     for name, pk in PAGED_KERNELS.items():
         kernels.append({
@@ -3762,6 +4428,18 @@ def main() -> int:
             # the LLM app's replica, a worker process leased the card,
             # over the 8 HTTP requests (`serve_app`, bf16)
             "launches_serve_app": app_launches[name],
+            # the rest of the serve leg on the runtime, counted in each
+            # process that decoded: the disaggregated app's decode replica
+            # (its prefill replica launches none), the fleet app's replica
+            # over a request and the wake after its park, the in-process
+            # promotion ladder's requests, and the batch engine actor
+            # (`disagg_app`, `fleet_app`, `fleet_ladder`, `batch`, bf16)
+            "launches_disagg_app": leg["disagg_app"][name],
+            "launches_fleet_app": leg["fleet_app"][name],
+            "launches_fleet_ladder": ladder_launches[name],
+            "launches_batch": leg["batch"][name],
+            # the f32 disaggregated app's decode replica (`disagg_parity`)
+            "launches_f32_disagg_parity": leg["disagg_parity"][name],
             "max_abs_err": paged_err[name],
             "max_abs_err_verify_cases": paged_err_verify[name],
             **times["uniform"][name],

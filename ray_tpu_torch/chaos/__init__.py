@@ -9,9 +9,12 @@
 * ``runner``'s :func:`install` / :func:`uninstall` make a plan this
   process's chaos engine and register it with the GCS;
   :func:`active_plan` reads the registration back.
+* ``verifier``'s :class:`RecoveryVerifier` asserts the cluster heals
+  after a fault: all tasks terminal, lease queues drained, refcounts at
+  baseline, no orphaned ErrorEvents.
 
-The JAX package's ``run_plan``, ``default_workload`` and recovery
-verifier are not ported yet (ROADMAP queue A item 4).
+The JAX package's ``run_plan`` and ``default_workload`` are not ported
+yet (ROADMAP queue A item 4).
 """
 
 from .clock import Clock, VirtualClock, WallClock, get_clock, set_clock
@@ -24,14 +27,18 @@ from .plan import (
     load_plan,
 )
 from .runner import active_plan, install, uninstall
+from .verifier import ChaosVerificationError, RecoveryVerifier, VerifyResult
 
 __all__ = [
     "BUILTIN_PLANS",
+    "ChaosVerificationError",
     "Clock",
     "FaultPlan",
     "FaultPlanError",
     "FaultSchedule",
     "PlanChaos",
+    "RecoveryVerifier",
+    "VerifyResult",
     "VirtualClock",
     "WallClock",
     "active_plan",

@@ -5,6 +5,8 @@ The part of ``ray_tpu/chaos/runner.py`` that the port has: ``install``,
 is registered in the GCS KV (``chaos:active_plan``), so every client can
 tell injected pain from real pain. A train loop's ``stage_init_hook``
 installs a ``kill_loop_stage`` plan this way inside its step stage.
+Partition and preemption targets resolve through ``util.state``, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -36,9 +38,9 @@ def _resolve_partition_peers(schedule: FaultSchedule) -> dict[int, list[str]]:
     def _alive_nodes():
         nonlocal nodes
         if nodes is None:
-            from ..core import api
+            from ..util import state
 
-            nodes = [n for n in api.nodes() if n["state"] == "ALIVE"]
+            nodes = [n for n in state.list_nodes() if n["state"] == "ALIVE"]
         return nodes
 
     for idx, rule in enumerate(schedule.rules):

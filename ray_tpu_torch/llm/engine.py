@@ -206,13 +206,6 @@ class PageAllocator:
             out.append(pid)
         return out
 
-    def fork(self, page_id: int) -> int | None:
-        """COW fork: one fresh page to receive a copy of shared
-        ``page_id`` (the caller copies the rows and swaps its own table
-        entry); the original keeps its refcount and cache entries."""
-        got = self.alloc(1)
-        return got[0] if got is not None else None
-
     def _unlink(self, page_id: int) -> None:
         """Drop every cache entry for ``page_id``; the page is not freed."""
         h = self.page_hash.pop(page_id, None)

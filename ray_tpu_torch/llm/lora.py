@@ -20,16 +20,19 @@ loads an adapter by writing its rank-padded A/B into the stack in place
 
 Cuts against the JAX package:
   * adapters are ``.npz`` files (``{wq|wk|wv|wo}.{A|B}`` arrays, rank
-    <= max_rank) read and written with numpy on local paths only; a path
-    with a ``scheme://`` raises ``ValueError`` (the JAX package reads
-    URIs through ``pyarrow.fs``). The files are the same format both
-    ways.
+    <= max_rank) read and written with numpy at local paths and
+    ``file://`` URIs (``urllib.parse``); any other scheme raises
+    ``ValueError`` naming it, since a remote store needs a network (the
+    JAX package reads URIs through ``pyarrow.fs``). The files are the
+    same format both ways.
 """
 
 from __future__ import annotations
 
 import functools
 import time
+import urllib.parse
+import urllib.request
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,7 +51,8 @@ class LoRAServingConfig:
 
     max_loras: int = 4          # stack slots (excluding the identity slot)
     max_rank: int = 16
-    dynamic_lora_loading_path: str | None = None  # directory of adapters
+    # directory of adapters: a local path or a file:// URI
+    dynamic_lora_loading_path: str | None = None
     # Residency cap: at most this many adapters occupy stack slots at once
     # (0 = max_loras). The stack is allocated for max_loras either way;
     # the cap bounds how many the LRU keeps warm (the tenant serve layer
@@ -141,24 +145,32 @@ def add_wo_delta_(out, attn, rows: dict, l: int):
 
 
 def load_adapter_arrays(path: str) -> dict[str, np.ndarray]:
-    """Read ``{proj}.{A|B}`` arrays from a local ``.npz``: A [L, E_in, r],
-    B [L, r, E_out] (r <= max_rank)."""
-    _check_local(path)
-    with np.load(path) as npz:
+    """Read ``{proj}.{A|B}`` arrays from an ``.npz`` at a local path or a
+    ``file://`` URI: A [L, E_in, r], B [L, r, E_out] (r <= max_rank)."""
+    with np.load(_local_path(path)) as npz:
         return {k: npz[k] for k in npz.files}
 
 
 def save_adapter(path: str, arrays: dict[str, np.ndarray]) -> None:
-    """Write an adapter ``.npz`` at a local path, exactly at ``path``."""
-    _check_local(path)
-    with open(path, "wb") as f:
+    """Write an adapter ``.npz`` exactly at a local path or ``file://``
+    URI."""
+    with open(_local_path(path), "wb") as f:
         np.savez(f, **arrays)
 
 
-def _check_local(path: str) -> None:
-    if "://" in path:
-        raise ValueError(f"adapter path {path!r} has a scheme; this package "
-                         "reads and writes local paths only")
+def _local_path(path: str) -> str:
+    """The file a local path or a ``file://`` URI names; any other scheme
+    raises ``ValueError`` (a remote store needs a network)."""
+    if "://" not in path:
+        return path
+    url = urllib.parse.urlparse(path)
+    if url.scheme != "file":
+        raise ValueError(f"adapter path {path!r}: scheme {url.scheme!r} is "
+                         "not supported; use a local path or a file:// URI")
+    if url.netloc not in ("", "localhost"):
+        raise ValueError(f"adapter path {path!r}: a file:// URI names no "
+                         f"host, got {url.netloc!r}")
+    return urllib.request.url2pathname(url.path)
 
 
 class LoRAManager:

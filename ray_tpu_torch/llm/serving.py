@@ -9,16 +9,14 @@ SSE token streaming) ride the Serve streaming request path. Scale-out
 happens at the Serve layer (num_replicas), exactly as the reference
 scales vLLM engine replicas.
 
-The port of ``ray_tpu/llm/serving.py`` for one host and the ``"unified"``
-role. Each replica's engine runs on the card (``device=None``) or where
-``device`` says. Not ported yet, and raising ``NotImplementedError``: an
-engine spanning hosts (``num_hosts`` > 1, ``shard_resources``) and
-tensor or pipeline parallelism (ROADMAP queue A item 7); the prefill and
-decode roles with ``serve_disaggregation``, ``migrated_completions``,
-``export_prefix_kv``, ``open_prefix_kv_stream`` (so a spill migration
-falls back to a cold prefill) and the weight broadcast source
-``open_weight_stream`` (item 6). ``fleet_promote`` has no cold re-init
-rung.
+The port of ``ray_tpu/llm/serving.py`` for one host. Each replica's
+engine runs on the card (``device=None``) or where ``device`` says. The
+prefill and decode pools (``serve_disaggregation="prefill_decode"``),
+spill migration between replicas, the fleet's weight broadcast and its
+promotion ladder (stream, host copy, cold re-init from the seed) are
+ported. Not ported yet, and raising ``NotImplementedError``: an engine
+spanning hosts (``num_hosts`` > 1, ``shard_resources``) and tensor or
+pipeline parallelism (ROADMAP queue A item 7).
 """
 
 from __future__ import annotations
@@ -110,6 +108,11 @@ class LLMDeployment:
     ``build_llm_app``). Methods run on replica executor threads; one
     background thread drives the engine so requests batch continuously."""
 
+    # Thread-local handoff marker: _import_migration stamps the KV token
+    # count here so the request object created later ON THE SAME THREAD
+    # gets an EV_MIGRATE flight-recorder event.
+    _migrate_tls = threading.local()
+
     def __init__(
         self,
         preset: str = "debug-128",
@@ -153,12 +156,6 @@ class LLMDeployment:
             raise NotImplementedError(
                 "tensor_parallel / pipeline_parallel > 1 is not ported yet "
                 "(ROADMAP queue A item 7: the parallel layers)")
-        if role not in ("unified", "prefill", "decode"):
-            raise ValueError(f"unknown role {role!r}")
-        if role != "unified":
-            raise NotImplementedError(
-                f"role={role!r} (disaggregated prefill/decode serving) is not "
-                "ported yet (ROADMAP queue A item 6)")
         # Multi-tenant policy: per-tenant quotas/weights + the replica's
         # HBM adapter residency cap. The same dict rides init_kwargs so
         # the controller publishes the WEIGHTS to routers via long poll;
@@ -195,9 +192,18 @@ class LLMDeployment:
             speculation_config=speculation_config,
             device=device,
         )
-        # Disaggregated serving (a "prefill" or "decode" role) is not
-        # ported; "unified" is the classic one-pool deployment.
+        # Disaggregated serving (DistServe-style prefill/decode split):
+        # a "prefill"-role replica chunk-prefills prompts locally, ships
+        # the KV pages to a decode replica over a migration stream, and
+        # relays the decode replica's token stream; "decode" replicas
+        # additionally accept migrated handoffs. "unified" (default) is
+        # the classic one-pool deployment.
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"unknown role {role!r}")
         self._role = role
+        self._decode_handle = decode_handle
+        if role == "prefill" and decode_handle is None:
+            raise ValueError("role='prefill' needs a decode_handle")
         self.model_id = model_id or (preset if isinstance(preset, str) else "custom")
         self.tokenizer = ByteTokenizer()
         if self.tokenizer.vocab_size > self.engine.config.vocab_size:
@@ -220,8 +226,14 @@ class LLMDeployment:
         self._token_queues: dict[str, queue.Queue] = {}
         self._counter = 0
         self._lock = threading.Lock()
-        # Always-warm fleet: request-idle clock (scale-to-zero input).
+        # Spill-migration and weight-broadcast exporters opened FOR remote
+        # pullers (reaped as their streams drain — see _track_spill_source).
+        self._spill_sources: list = []
+        # Always-warm fleet: request-idle clock (scale-to-zero input)
+        # and the seed that reproduces this deployment's weights for the
+        # promotion ladder's last-resort cold re-init.
         self._last_request_ts = time.time()
+        self._seed = seed
         self._running = True
         self._loop_thread = threading.Thread(target=self._engine_loop, daemon=True)
         self._loop_thread.start()
@@ -343,6 +355,7 @@ class LLMDeployment:
                       eos_id=self.tokenizer.eos_id,
                       model=self._adapter_for(model),
                       deadline=deadline)
+        self._take_migrate_mark(req)
         done = threading.Event()
         self._events[rid] = done  # before add: the engine may finish fast
         try:
@@ -384,6 +397,18 @@ class LLMDeployment:
             "finish_reason": finish,
             "num_generated": len(req.generated),
         }
+
+    def _take_migrate_mark(self, req: Request) -> None:
+        """Give ``req`` the EV_MIGRATE event that ``_import_migration``
+        left on this thread, and clear the mark. Both the blocking and the
+        streamed completion take it, so a streamed handoff never leaves a
+        mark for a later request on the same thread."""
+        migrated = getattr(self._migrate_tls, "tokens", None)
+        if migrated is not None:
+            from ..observability import loop_recorder
+
+            req.timeline.add(loop_recorder.EV_MIGRATE, migrated)
+            self._migrate_tls.tokens = None
 
     # ----------------------------------------------------- streaming path
     def _admit_streaming(self, req: Request,
@@ -444,16 +469,21 @@ class LLMDeployment:
     def completions(self, body: dict):
         """POST /v1/completions (OpenAI-compatible; reference
         ``routers/router.py:173``). ``"stream": true`` => SSE generator.
-        """
+        On a prefill-pool replica the request is prefilled locally and
+        handed off to a decode replica (``_disagg_request``)."""
         prompt = body.get("prompt", "")
         if isinstance(prompt, list):
             prompt = prompt[0] if prompt else ""
+        if self._role == "prefill" and self._decode_handle is not None:
+            return self._disagg_request(body, prompt, chat=False)
         return self._local_completion(body, prompt, chat=False)
 
     def chat_completions(self, body: dict):
         """POST /v1/chat/completions: flatten messages with a minimal
         template, then the completion path."""
         prompt = _render_chat(body.get("messages", []))
+        if self._role == "prefill" and self._decode_handle is not None:
+            return self._disagg_request(body, prompt, chat=True)
         return self._local_completion(body, prompt, chat=True)
 
     def _local_completion(self, body: dict, prompt: str, chat: bool):
@@ -509,17 +539,129 @@ class LLMDeployment:
         serve the request as an ordinary local completion — admission
         maps the imported prefix, so only the final prompt token's
         hidden state is computed here before decode begins."""
-        raise NotImplementedError(
-            "migrated_completions (disaggregated serving) is not ported yet "
-            "(ROADMAP queue A item 6)")
+        migration = migration or {}
+        chat = bool(migration.get("chat"))
+        if chat:
+            prompt = _render_chat(body.get("messages", []))
+        else:
+            prompt = body.get("prompt", "")
+            if isinstance(prompt, list):
+                prompt = prompt[0] if prompt else ""
+        self._import_migration(migration)
+        return self._local_completion(body, prompt, chat=chat)
+
+    def _import_migration(self, migration: dict) -> None:
+        addr = migration.get("kv_address")
+        if not addr or not self.engine.supports_kv_migration:
+            return
+        t0w = time.time()
+        try:
+            from .migration import receive_kv_stream
+
+            stats = receive_kv_stream(self.engine, addr)
+            attrs = {k: stats.get(k) for k in
+                     ("cached_tokens", "pages", "bytes", "seconds",
+                      "complete", "status")}
+        except Exception as e:  # never fail the request over a transfer
+            attrs = {"status": f"{type(e).__name__}: {e}",
+                     "complete": False}
+        attrs["kind"] = "disagg_handoff"
+        if attrs.get("complete"):
+            # Mark the NEXT request this thread creates (the migrated
+            # completion below) with a flight-recorder migrate event.
+            self._migrate_tls.tokens = int(attrs.get("cached_tokens") or 0)
+        self._record_kv_migrate_span(t0w, attrs)
+
+    def _disagg_request(self, body: dict, prompt: str, chat: bool):
+        """Prefill-pool ingress (DistServe-style split): chunk-prefill
+        the prompt on THIS replica (``prefill_only`` — no token is
+        sampled), stream its KV pages to a decode replica WHILE later
+        chunks are still prefilling, and relay the decode replica's
+        response. TTFT-bound prefill and ITL-bound decode never share a
+        replica, and the handoff latency hides behind prefill compute.
+        If the decode pool is unreachable the request falls back to
+        local serving — the prefix just prefilled is cached, so the
+        fallback costs one suffix token."""
+        from .migration import KVMigrationSource
+
+        ids = self.tokenizer.encode(prompt)
+        migration: dict = {"chat": chat}
+        src = None
+        rid = None
+        if self.engine.supports_kv_migration and len(ids) > 1 \
+                and not body.get("model"):
+            rid = self._next_rid()
+            req = Request(rid, list(ids), max_new_tokens=1,
+                          prefill_only=True, pin_for_export=True)
+            # Invalid prompts raise here, exactly like the local path.
+            self.engine.add_request(req)
+            try:
+                src = KVMigrationSource(self.engine, req)
+                migration["kv_address"] = src.address
+                migration["prompt_len"] = len(ids)
+            except Exception:
+                self.engine.cancel(rid)
+                src = None
+        group = self._group_of(prompt, body.get("session_id"))
+        handle = self._decode_handle.options(
+            method_name="migrated_completions",
+            prefix_group=group or f"mig:{uuid.uuid4().hex[:8]}",
+            deadline=self._effective_deadline(body))
+        if not body.get("stream"):
+            try:
+                out = handle.remote(migration, body).result(
+                    timeout=self.request_timeout_s)
+            except Exception:
+                out = None
+            finally:
+                if src is not None:
+                    src.close()
+            if out is not None:
+                return out
+            return self._local_completion(body, prompt, chat)
+        try:
+            stream = handle.remote_streaming(migration, body)
+        except Exception:
+            # decode pool unreachable: serve locally off the hot prefix
+            if rid is not None:
+                self.engine.cancel(rid)
+            if src is not None:
+                src.close()
+            return self._local_completion(body, prompt, chat)
+
+        def relay():
+            try:
+                for msg in stream:
+                    kind = msg.get("kind")
+                    if kind == "start":
+                        yield {"__serve_response__": True,
+                               "content_type": msg.get(
+                                   "content_type", "text/event-stream")}
+                    elif kind == "chunk":
+                        yield msg.get("data", b"")
+                    elif kind == "error":
+                        raise RuntimeError(msg.get("error", "decode failed"))
+                    elif kind == "full":
+                        yield json.dumps(msg.get("data")).encode()
+            finally:
+                try:
+                    stream.close()
+                except Exception:
+                    pass
+                if rid is not None:
+                    self.engine.cancel(rid)  # no-op once prefilled
+                if src is not None:
+                    src.close()
+
+        return relay()
 
     def export_prefix_kv(self, prompt: str, model: str | None = None):
         """Handle/actor entry point: export this replica's cached KV
         covering ``prompt``'s longest prefix as ONE blocking payload
         (``open_prefix_kv_stream`` is the chunked streaming form the
         spill pull uses)."""
-        raise NotImplementedError(
-            "export_prefix_kv is not ported yet (ROADMAP queue A item 6)")
+        ids = self.tokenizer.encode(prompt)
+        return self.engine.export_prefix_kv(ids, self._adapter_for(model))
 
     def open_prefix_kv_stream(self, prompt: str,
                               model: str | None = None) -> dict | None:
@@ -529,9 +671,34 @@ class LLMDeployment:
         imports chunk-by-chunk — a slow or dying source degrades to the
         received prefix exactly like the disaggregation handoff.
         Returns ``{"kv_address": ...}`` or None when nothing is cached."""
-        raise NotImplementedError(
-            "open_prefix_kv_stream (spill migration) is not ported yet "
-            "(ROADMAP queue A item 6)")
+        from .migration import KVMigrationSource
+
+        ids = self.tokenizer.encode(prompt)
+        src = KVMigrationSource.for_cached_prefix(
+            self.engine, ids, self._adapter_for(model))
+        if src is None:
+            return None
+        self._track_spill_source(src)
+        return {"kv_address": src.address}
+
+    def _track_spill_source(self, src) -> None:
+        """Keep remotely-opened spill exporters until their streams
+        drain, reaping finished ones (and force-closing the oldest past
+        the cap) on each new open — the server socket outlives the
+        exporter thread until close()."""
+        with self._lock:
+            sources = getattr(self, "_spill_sources", [])
+            keep = []
+            for s in sources:
+                if s._thread.is_alive() and len(keep) < 7:
+                    keep.append(s)
+                else:
+                    try:
+                        s.close()
+                    except Exception:
+                        pass
+            keep.append(src)
+            self._spill_sources = keep
 
     def _maybe_spill_migrate(self, prompt: str,
                              model: str | None = None) -> None:
@@ -606,6 +773,7 @@ class LLMDeployment:
                       eos_id=self.tokenizer.eos_id,
                       model=self._adapter_for(body.get("model")),
                       deadline=self._effective_deadline(body))
+        self._take_migrate_mark(req)
         group = self._group_of(prompt, body.get("session_id"))
         tenant = self._tenant_for(body.get("model"))
 
@@ -758,6 +926,21 @@ class LLMDeployment:
             return {"ok": True, "path": path, "ladder": ladder,
                     "seconds": round(time.monotonic() - t0, 6)}
         ladder.append(f"host:{out.get('reason', '?')}")
+        if eng.supports_weight_residency and not eng.weights_resident():
+            # Last resort: weights here come from the seeded init, so a
+            # cold re-init reproduces them bit-for-bit (the checkpoint
+            # re-load of a real deployment): the executor's generator,
+            # device, dtype and draw order.
+            from ..models.llama import init_params
+
+            params = init_params(
+                eng.config,
+                torch.Generator(eng.executor.device).manual_seed(self._seed))
+            out = eng.install_weights(params)
+            if out.get("ok"):
+                return {"ok": True, "path": "cold_init", "ladder": ladder,
+                        "seconds": round(time.monotonic() - t0, 6)}
+            ladder.append(f"cold_init:{out.get('reason', '?')}")
         return {"ok": eng.weights_resident(), "path": "failed",
                 "ladder": ladder,
                 "seconds": round(time.monotonic() - t0, 6)}
@@ -767,11 +950,23 @@ class LLMDeployment:
                            ) -> dict | None:
         """Open a weight broadcast from this (warm or standby) replica:
         N cold/standby replicas stream ONE read of the weights instead
-        of N independent loads. Returns ``{"weight_address",
+        of N independent loads. Rides the same source-reaping registry
+        as the KV spill exporters. Returns ``{"weight_address",
         "fingerprint"}`` or None when there is nothing to serve."""
-        raise NotImplementedError(
-            "the fleet's weight broadcast source is not ported yet "
-            "(ROADMAP queue A item 6: serve/fleet)")
+        eng = self.engine
+        params = getattr(eng.executor, "params", None)
+        if params is None:
+            params = eng._host_params
+        if params is None or not eng.supports_weight_residency:
+            return None
+        from .weights import WeightBroadcastSource
+
+        src = WeightBroadcastSource(
+            params, model=self.model_id, n_readers=n_readers,
+            _die_after_chunks=_die_after_chunks)
+        self._track_spill_source(src)
+        return {"weight_address": src.address,
+                "fingerprint": src.fingerprint}
 
     # ---------------------------------------------------------- HTTP entry
     def __call__(self, request):
@@ -838,11 +1033,17 @@ def build_llm_app(preset: str = "debug-128", *, num_replicas: int = 1,
     Pass ``ray_actor_options={"num_gpus": 1, ...}`` to give each replica
     (engine) a GPU lease; its worker then sees the host's cards, and the
     engine runs on the card (``device=None``) or where ``device`` says
-    (``"cpu"``). Without a GPU lease a replica's worker sees no card.
+    (``"cpu"``). Without a GPU lease a replica's worker sees no card; a
+    fractional lease (``{"num_gpus": 0.5}``) lets two replicas share one.
 
-    ``serve_disaggregation="prefill_decode"`` (the DistServe-style split
-    into prefill and decode pools), ``num_hosts`` > 1 and tensor or
-    pipeline parallelism are not ported yet and raise
+    ``serve_disaggregation="prefill_decode"`` builds the DistServe-style
+    split instead of one replica pool: ``prefill_replicas`` ingress
+    replicas ("llm-prefill" pool) chunk-prefill prompts and live-migrate
+    the KV pages to the ``num_replicas`` decode replicas ("llm-decode"
+    pool), which own all token streaming — TTFT-bound and ITL-bound work
+    never compete for a replica, and an affinity spill inside either
+    pool migrates pages instead of recomputing them. ``num_hosts`` > 1
+    and tensor or pipeline parallelism are not ported yet and raise
     ``NotImplementedError``."""
     from ..serve import deployment
 
@@ -879,6 +1080,21 @@ def build_llm_app(preset: str = "debug-128", *, num_replicas: int = 1,
         raise ValueError(
             f"unknown serve_disaggregation {serve_disaggregation!r} "
             "(use 'prefill_decode' or None)")
-    raise NotImplementedError(
-        "serve_disaggregation='prefill_decode' is not ported yet (ROADMAP "
-        "queue A item 6)")
+    decode_app = deployment(
+        LLMDeployment,
+        name="llm-decode",
+        num_replicas=num_replicas,
+        max_ongoing_requests=max_ongoing_requests,
+        autoscaling_config=autoscaling_config,
+        ray_actor_options=ray_actor_options,
+        pool="decode",
+    ).bind(preset, role="decode", **engine_kwargs)
+    return deployment(
+        LLMDeployment,
+        name="llm-prefill",
+        num_replicas=max(1, prefill_replicas),
+        max_ongoing_requests=max_ongoing_requests,
+        ray_actor_options=ray_actor_options,
+        pool="prefill",
+    ).bind(preset, role="prefill", decode_handle=decode_app,
+           **engine_kwargs)

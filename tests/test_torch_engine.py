@@ -325,10 +325,12 @@ def test_import_loads_no_jax_and_no_ray_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # The compiled graphs and the chaos plans run in CPU stage workers:
-    # they load neither torch nor yaml at import.
+    # The compiled graphs, the chaos plans and verifier and the state API
+    # run in CPU workers and drivers: they load neither torch nor yaml at
+    # import.
     code = ("import sys, ray_tpu_torch.dag, ray_tpu_torch.chaos, "
-            "ray_tpu_torch.chaos.plan, ray_tpu_torch.dag.loop\n"
+            "ray_tpu_torch.chaos.plan, ray_tpu_torch.dag.loop, "
+            "ray_tpu_torch.chaos.verifier, ray_tpu_torch.util.state\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu', 'torch', 'yaml'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

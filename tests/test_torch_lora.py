@@ -11,6 +11,8 @@ taken in another order). The JAX paged path runs its Pallas kernel in
 interpret mode; the port's runs the kernel's plain version.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import jax
@@ -397,6 +399,33 @@ def test_npz_round_trips_both_ways(model, tmp_path):
             fn("gs://bucket/adapter.npz")
 
 
+def test_file_uris_round_trip_both_ways(model, tmp_path):
+    """``file://`` URIs (a directory with a space, percent-encoded) read
+    and write the same files as plain paths, in both packages; a remote
+    scheme raises ``ValueError`` naming it."""
+    jcfg, *_ = model
+    arrays = _adapter(jcfg, 9)
+    d = tmp_path / "adapter dir"
+    d.mkdir()
+    jlora.save_adapter(str(d / "jax.npz"), arrays)
+    tlora.save_adapter((d / "port.npz").as_uri(), arrays)
+    assert "%20" in (d / "port.npz").as_uri()
+    for got in (tlora.load_adapter_arrays((d / "jax.npz").as_uri()),
+                tlora.load_adapter_arrays(str(d / "port.npz")),
+                jlora.load_adapter_arrays((d / "port.npz").as_uri())):
+        assert got.keys() == arrays.keys()
+        for k in arrays:
+            np.testing.assert_array_equal(got[k], arrays[k])
+    for uri in ("s3://bucket/adapter.npz", "hdfs://nn/adapter.npz"):
+        scheme = uri.split(":")[0]
+        with pytest.raises(ValueError, match=f"scheme '{scheme}'"):
+            tlora.load_adapter_arrays(uri)
+        with pytest.raises(ValueError, match=f"scheme '{scheme}'"):
+            tlora.save_adapter(uri, arrays)
+    with pytest.raises(ValueError, match="names no host"):
+        tlora.load_adapter_arrays("file://otherhost/adapter.npz")
+
+
 @pytest.mark.skipif("torch.cuda.is_available()",
                     reason="checks the behaviour without a CUDA device")
 def test_init_lora_stack_defaults_to_the_card(model):
@@ -498,6 +527,18 @@ def test_engine_mixed_adapters_match_jax(model, lora_dir, impl):
     assert got_eng.pool_stats()["active_slots"] == 0
     assert got_eng.lora_manager.unload_idle() == 3   # no pin is left
     assert not got_eng._lora_idx.any()
+
+
+def test_dynamic_loading_path_takes_a_file_uri(model, lora_dir):
+    """An engine whose ``dynamic_lora_loading_path`` is a ``file://`` URI
+    loads and serves the adapters as one given the plain directory."""
+    uri = pathlib.Path(lora_dir).as_uri()
+    eng, Req = _engine("torch", model, uri)
+    got = _serve(eng, Req, MIX)
+    assert got == _serve(*_engine("torch", model, lora_dir), MIX)
+    assert eng.lora_manager.stats()["loads"] == 3
+    assert got[1:] != _serve(*_engine("torch", model, lora_dir),
+                             [None] * 4)[1:]
 
 
 def test_adapter_prefill_keeps_the_starvation_guard(model, lora_dir):
