@@ -76,8 +76,9 @@ Phases, each printing JSON lines:
                 fingerprint the first worker took before it saved; no
                 worker process may be left after ``shutdown()``;
   train_loop    the structured step spec through ``DataParallelTrainer``:
-                ``TrainLoopConfig`` with ``train``'s step (llama3-1b,
-                remat "attn", SGD) and no drive argument, whose default is
+                ``TrainLoopConfig`` with ``train``'s step (llama3-1b's
+                widths and 4 of its 16 layers, remat "attn", SGD) and no
+                drive argument, whose default is
                 the compiled loop: data, step and checkpoint stage actors
                 parked once over shm rings (``compile_loop``), the step
                 stage leased the card; 2 warm-up and 6 timed steps of 8 x
@@ -224,8 +225,7 @@ Phases, each printing JSON lines:
                 of the card (``num_gpus=0.5``), both on ``cuda`` in
                 processes of their own; ``serve.status()`` shows the
                 pools; ``serve_app``'s 8 prompts streamed at once over
-                HTTP, then 8 of the same lengths and new text (the first
-                wave meets both replicas cold): each finishes, each
+                HTTP, meeting both replicas cold: each finishes, each
                 leaves one complete
                 ``llm.kv_migrate`` span of kind ``disagg_handoff`` with
                 cached tokens (read through ``util.state.list_spans``),
@@ -263,7 +263,39 @@ Phases, each printing JSON lines:
                 one chunk (path ``host``); a dead address with the host
                 copy lost (path ``cold_init``: the seed's weights, the
                 donor's fingerprint again); a request served after each,
-                each rung's seconds.
+                each rung's seconds;
+  libraries     Tune, workflows and jobs on one new cluster. ``tune``: a
+                ``Tuner`` over ``lr`` in {2.0, 0.5} (``max_concurrent_trials
+                =2``, JSON and CSV logger callbacks) whose trainable runs
+                ``TorchTrainer.fit`` with one worker leased half of the card
+                (``resources_per_worker={"CPU": 1, "GPU": 0.5}``): each fit
+                worker builds llama3-1b from the seed (remat "attn") and
+                takes 1 warm-up and 3 SGD steps at its trial's rate on 8 x
+                2,048 seeded tokens. Both trials must end TERMINATED, the
+                best result be the lower loss, each fit worker be a process
+                of its own on ``cuda`` with 16 launches a step of each sm90
+                flash kernel and 0 simt (counted there), the two step
+                windows overlap, each trial directory hold its
+                ``result.json`` line and ``progress.csv`` row, and
+                ``Tuner.restore`` of the finished experiment start no trial
+                and no worker and give the same results; prints each
+                trial's wall time, the time to its fit's first step and
+                its tokens per second beside ``train``'s. ``job`` +
+                ``workflow``: a driver script written to a temporary
+                directory is submitted with ``JobSubmissionClient``; it
+                connects through ``RAY_TPU_TORCH_ADDRESS`` and runs a
+                workflow whose step A (``remote(num_gpus=1)``) serves 4
+                greedy requests of 64 tokens on a llama3-1b bf16 engine
+                in the ``serve`` geometry and whose step B (a CPU step)
+                fails once. The job must end FAILED with step B's error in
+                its logs and the workflow read FAILED; ``workflow.resume``
+                here must finish it without running step A again (its run
+                counter stays 1), step A's tokens must equal an in-process
+                engine's of the same seed, prompts and shapes, and its
+                worker must have run the split kernel 16 times a decode
+                step and the single one 0 times. A ``sleep`` job is
+                stopped: STOPPED, and its process gone. No worker may be
+                left after ``shutdown()``.
 
 Then a JSON line of the kernels, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -1382,6 +1414,7 @@ def phase_train_fit(train_stats: dict, seed: int = 0) -> dict:
 # drive parks data -> step -> ckpt stage actors on a compiled loop over shm
 # rings; the same spec with use_compiled_loop=False is the eager drive.
 LOOP_WARMUP, LOOP_TIMED = 2, 6
+LOOP_LAYERS = 4          # of llama3-1b's 16: the depth cut to fit the limit
 LOOP_SNAPSHOT_EVERY = 4
 LOOP_CREDITS = 2
 LOOP_RUN = "train_loop"
@@ -1442,7 +1475,7 @@ def _loop_fns(cfg, seed: int, kernels: dict) -> tuple:
 
 def _packed_snapshot(cfg, seed: int) -> dict:
     """What the step stage sends down its ring at a snapshot step, made
-    here the same way: llama3-1b from the seed on the card, its host
+    here the same way: ``cfg``'s model from the seed on the card, its host
     snapshot (``resilience.checkpoint._snapshot``) in a step message, and
     ``dag.compiled._pack`` of that message. Returns the packed bytes and
     the snapshot's and the pack's seconds; the ring's slots are sized
@@ -1484,7 +1517,8 @@ def _loop_fit(name: str, storage: str, spec, drive):
 
 def phase_train_loop(seed: int = 0) -> dict:
     """The structured step spec through ``DataParallelTrainer`` at
-    llama3-1b full width: ``TrainLoopConfig`` with no drive argument, whose
+    llama3-1b's widths and ``LOOP_LAYERS`` of its layers:
+    ``TrainLoopConfig`` with no drive argument, whose
     default is the compiled loop (three stage actors parked over shm
     rings, the step stage leased the card), then the same spec with
     ``use_compiled_loop=False``, in turns. Each run takes 2 warm-up and 6
@@ -1500,7 +1534,8 @@ def phase_train_loop(seed: int = 0) -> dict:
     from ray_tpu_torch import train
     from ray_tpu_torch.resilience import latest_registered
 
-    cfg = dataclasses.replace(PRESETS["llama3-1b"], remat_policy="attn")
+    cfg = dataclasses.replace(PRESETS["llama3-1b"], remat_policy="attn",
+                              n_layers=LOOP_LAYERS)
     n_steps = LOOP_WARMUP + LOOP_TIMED
     torch.cuda.empty_cache()
     packed = _packed_snapshot(cfg, seed)
@@ -1587,7 +1622,8 @@ def phase_train_loop(seed: int = 0) -> dict:
     left = _worker_pids()
     if left:
         raise AssertionError(f"worker processes left after shutdown: {left}")
-    emit("train_loop", preset="llama3-1b", optimizer="sgd", lr=TRAIN_LR,
+    emit("train_loop", preset="llama3-1b", n_layers=cfg.n_layers,
+         optimizer="sgd", lr=TRAIN_LR,
          remat_policy="attn", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
          chunk_tokens=TRAIN_CHUNK, warmup_steps=LOOP_WARMUP,
          timed_steps=LOOP_TIMED, snapshot_every=LOOP_SNAPSHOT_EVERY,
@@ -3557,19 +3593,23 @@ def _launch_delta(before: dict, after: dict) -> dict:
             for name, key in APP_KERNEL_KEYS.items()}
 
 
-def _worker_pids() -> list:
-    pids = []
+def _cmdlines():
+    """(pid, command line with spaces between its arguments) of every
+    process this one can read."""
     for entry in os.listdir("/proc"):
         if not entry.isdigit():
             continue
         try:
             with open(f"/proc/{entry}/cmdline", "rb") as f:
-                cmd = f.read().decode(errors="replace")
+                cmd = f.read().replace(b"\0", b" ").strip()
         except OSError:
             continue
-        if any(m in cmd for m in WORKER_MODULES):
-            pids.append(int(entry))
-    return pids
+        yield int(entry), cmd.decode(errors="replace")
+
+
+def _worker_pids() -> list:
+    return [pid for pid, cmd in _cmdlines()
+            if any(m in cmd for m in WORKER_MODULES)]
 
 
 def _strip(body: dict) -> dict:
@@ -3817,7 +3857,7 @@ def _handoff_spans(n: int) -> list:
 
 def _disagg_app(app_stats: dict, seed: int) -> dict:
     """llama3-1b's prefill and decode pools, one replica each on half of
-    the card, two waves of 8 streamed requests at once over HTTP. Returns
+    the card, one wave of 8 streamed requests at once over HTTP. Returns
     the decode replica's paged launches."""
     from ray_tpu_torch import serve
     from ray_tpu_torch.llm import build_llm_app
@@ -3859,9 +3899,9 @@ def _disagg_app(app_stats: dict, seed: int) -> dict:
                 prompts.values())))
         return runs, time.perf_counter() - t
 
-    # the first wave meets both replicas cold, as serve_app's does; the
-    # second sends prompts of the same lengths and new text
-    waves = [wave(seed), wave(seed + 1)]
+    # the wave meets both replicas cold, as serve_app's does (a second
+    # wave of new text was cut to keep the script inside its time limit)
+    waves = [wave(seed)]
     after = {role: _port_row(h) for role, h in handles.items()}
     launches = {role: _launch_delta(before[role], after[role])
                 for role in handles}
@@ -3906,7 +3946,7 @@ def _disagg_app(app_stats: dict, seed: int) -> dict:
                       "ttft_ms": {k: r["ttft_ms"] for k, r in runs.items()},
                       "output_tok_per_s": n_tokens / wall})
     emit("disagg_app", preset=APP_PRESET, app_start_s=start_s,
-         **stats[0], warm_wave=stats[1],
+         **stats[0],
          serve_app={k: app_stats[k] for k in (
              "ttft_p50_ms", "ttft_max_ms", "output_tok_per_s",
              "app_start_s")},
@@ -4342,6 +4382,470 @@ def phase_fleet_ladder(seed: int = 0) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- libraries
+# Tune, workflows and jobs on one port cluster: a Tuner grid of two
+# llama3-1b TorchTrainer runs, each fit worker leased half of the card, and
+# a submitted job whose driver runs a durable workflow: a step leased the
+# card serves on the paged kernel, a CPU step fails once and is resumed.
+TUNE_LRS = (2.0, 0.5)
+TUNE_WARMUP, TUNE_STEPS = 1, 3
+TUNE_WORKER = {"CPU": 1, "GPU": 0.5}
+LIB_TIMEOUT_S = 600.0
+WF_PROMPTS = (16, 40, 77, 120)   # prompt lengths of the workflow's requests
+WF_NEW = 64
+WF_ID = "libraries"
+
+
+def _paged_kernel_attrs() -> dict:
+    """Each of ``PAGED_KERNELS``' kernels by its attribute name in
+    ``ray_tpu_torch.ops.paged_attention``, through which another process
+    reads its own launch counts."""
+    from ray_tpu_torch.ops import paged_attention
+
+    return {name: next(a for a, v in vars(paged_attention).items()
+                       if v is pk.kernel)
+            for name, pk in PAGED_KERNELS.items()}
+
+
+def tune_fit_fn(config: dict) -> None:
+    """The train_fn of each Tune trial's ``TorchTrainer``: llama3-1b from
+    the seed (remat "attn") on the card, one warm-up and ``timed`` SGD
+    steps at the trial's learning rate on one batch of seeded tokens.
+    Reports the losses, the step window on the wall clock, the timed
+    steps' tokens per second and this process's flash launches."""
+    import time
+
+    started_at = time.time()
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import PRESETS, init_params, loss_fn
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.train.checkpoint import map_tree
+
+    device = torch.device(config["device"] or "cuda")
+    cfg = dataclasses.replace(PRESETS[config["preset"]],
+                              remat_policy="attn")
+    params = init_params(cfg, torch.Generator(device).manual_seed(
+        config["seed"]))
+    leaves = []
+    map_tree(leaves.append, params)
+    for p in leaves:
+        p.requires_grad_()
+    tokens = torch.from_numpy(np.random.default_rng(config["seed"]).integers(
+        0, cfg.vocab_size, (config["batch"], config["seq"])).astype(
+            np.int32)).to(device)
+    kernels = {name: getattr(attention, attr)
+               for name, attr in config["kernels"].items()}
+    before = {name: k.launches for name, k in kernels.items()}
+    warmup, timed = config["warmup"], config["timed"]
+    losses, step_s = [], []
+    first_step_at = time.time()
+    for i in range(warmup + timed):
+        if i == warmup:
+            t_timed = time.perf_counter()
+        t_step = time.perf_counter()
+        loss = loss_fn(params, {"tokens": tokens}, cfg,
+                       chunk_tokens=config["chunk"])
+        loss.backward()
+        with torch.no_grad():
+            for p in leaves:
+                p.sub_(config["lr"] * p.grad)
+                p.grad = None
+        losses.append(loss.item())  # waits for the step
+        step_s.append(time.perf_counter() - t_step)
+    timed_s = time.perf_counter() - t_timed
+    on_card = device.type == "cuda"
+    train.report({
+        "loss": losses[-1], "losses": losses, "step_s": step_s,
+        "tokens_per_sec": tokens.numel() * timed / timed_s,
+        "window": [first_step_at, time.time()], "started_at": started_at,
+        "pid": os.getpid(), "device": str(device),
+        "device_name": torch.cuda.get_device_name(device) if on_card
+        else "cpu",
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(device)
+        if on_card else 0,
+        "kernel_launches": {n: k.launches - before[n]
+                            for n, k in kernels.items()}})
+
+
+def tune_trainable(config: dict) -> None:
+    """A Tune trial: ``TorchTrainer.fit`` of ``tune_fit_fn`` at the
+    trial's learning rate, its worker leased half of the card, and the
+    fit's metrics reported with the trial's own process and wall time."""
+    import os
+    import time
+
+    started_at = time.time()
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    result = TorchTrainer(
+        tune_fit_fn, train_loop_config={**config["fit"], "lr": config["lr"]},
+        scaling_config=ScalingConfig(
+            num_workers=1, use_gpu=True,
+            resources_per_worker=dict(config["worker_resources"])),
+        run_config=RunConfig(name=f"fit_lr{config['lr']}",
+                             storage_path=config["storage"])).fit()
+    if result.error is not None:
+        raise result.error
+    tune.report({**result.metrics, "lr": config["lr"],
+                 "trial_pid": os.getpid(), "trial_started_at": started_at,
+                 "trial_wall_s": time.time() - started_at})
+
+
+def _experiment_states(exp_dir: str) -> list:
+    with open(os.path.join(exp_dir, "experiment_state.pkl"), "rb") as f:
+        return [entry["state"] for entry in pickle.load(f)]
+
+
+def _tune_grid(storage: str, train_stats: dict, seed: int) -> dict:
+    """The Tuner grid of two llama3-1b fits sharing the card, then
+    ``Tuner.restore`` of the finished experiment. Returns the flash
+    launches summed over the two fit workers."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig
+
+    cfg = PRESETS[APP_PRESET]
+    fit = dict(preset=APP_PRESET, device=APP_DEVICE, seed=seed,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, chunk=TRAIN_CHUNK,
+               warmup=TUNE_WARMUP, timed=TUNE_STEPS, kernels=_kernel_attrs())
+    space = {"lr": tune.grid_search(list(TUNE_LRS)), "fit": fit,
+             "worker_resources": TUNE_WORKER,
+             "storage": os.path.join(storage, "fits")}
+    tune_config = tune.TuneConfig(metric="loss", mode="min",
+                                  max_concurrent_trials=2)
+    t0 = time.time()
+    grid = tune.Tuner(
+        tune_trainable, param_space=space, tune_config=tune_config,
+        run_config=RunConfig(name="tune_llama", storage_path=storage,
+                             callbacks=[tune.JsonLoggerCallback(),
+                                        tune.CSVLoggerCallback()])).fit()
+    fit_s = time.time() - t0
+    if grid.errors:
+        raise AssertionError(f"tune trials failed: {grid.errors}")
+    exp_dir = os.path.join(storage, "tune_llama")
+    states = _experiment_states(exp_dir)
+    if states != ["TERMINATED"] * len(TUNE_LRS):
+        raise AssertionError(f"trial states {states}")
+    rows = [r.metrics for r in grid]
+    best = grid.get_best_result("loss", "min")
+    if best.metrics["loss"] != min(m["loss"] for m in rows):
+        raise AssertionError(f"best {best.metrics['loss']} of "
+                             f"{[m['loss'] for m in rows]}")
+    pids = {m["pid"] for m in rows}
+    others = {os.getpid()} | {m["trial_pid"] for m in rows}
+    if len(pids) != len(rows) or pids & others:
+        raise AssertionError(f"fit workers {pids}, trials and driver "
+                             f"{others}")
+    if APP_DEVICE is None and not all(m["device"].startswith("cuda")
+                                      for m in rows):
+        raise AssertionError(f"fit workers on {[m['device'] for m in rows]}")
+    start = max(m["window"][0] for m in rows)
+    end = min(m["window"][1] for m in rows)
+    if start >= end:
+        raise AssertionError(f"fit step windows do not overlap: "
+                             f"{[m['window'] for m in rows]}")
+    n_steps = TUNE_WARMUP + TUNE_STEPS
+    on_route = {flash_kernel_of(step, cfg.dtype)
+                for step in ("fwd", "dq", "dkdv")}
+    expected = {name: cfg.n_layers * n_steps if name in on_route else 0
+                for name in FLASH_KERNELS}
+    for m in rows:
+        if m["kernel_launches"] != expected:
+            raise AssertionError(f"fit worker {m['pid']} flash launches "
+                                 f"{m['kernel_launches']} != {expected}")
+        if not all(math.isfinite(x) for x in m["losses"]):
+            raise AssertionError(f"non-finite loss: {m['losses']}")
+    for r in grid:
+        with open(os.path.join(r.path, "result.json")) as f:
+            lines = [json.loads(line) for line in f]
+        with open(os.path.join(r.path, "progress.csv")) as f:
+            csv_lines = f.read().splitlines()
+        if len(lines) != 1 or lines[0]["loss"] != r.metrics["loss"] or \
+                len(csv_lines) != 2:
+            raise AssertionError(f"{r.path}: {len(lines)} result.json lines, "
+                                 f"{len(csv_lines)} progress.csv lines")
+
+    starts = []
+
+    class Starts(tune.Callback):
+        def on_trial_start(self, trial):
+            starts.append(trial.trial_id)
+
+    pids_before = set(_worker_pids())
+    t1 = time.time()
+    again = tune.Tuner.restore(exp_dir, tune_trainable,
+                               tune_config=tune_config,
+                               run_config=RunConfig(callbacks=[Starts()]))
+    again = again.fit()
+    restore_s = time.time() - t1
+    new_pids = set(_worker_pids()) - pids_before
+    if starts or new_pids or [r.metrics for r in again] != rows or \
+            _experiment_states(exp_dir) != states:
+        raise AssertionError(f"restore started trials {starts}, new "
+                             f"workers {sorted(new_pids)}")
+    emit("libraries_tune", preset=APP_PRESET, lrs=list(TUNE_LRS),
+         warmup_steps=TUNE_WARMUP, timed_steps=TUNE_STEPS,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, worker_resources=TUNE_WORKER,
+         fit_s=fit_s, best_lr=best.metrics["lr"],
+         best_loss=best.metrics["loss"],
+         trials=[{
+             "lr": m["lr"], "loss": m["loss"], "losses": m["losses"],
+             "trial_wall_s": m["trial_wall_s"],
+             "tokens_per_sec": m["tokens_per_sec"], "step_s": m["step_s"],
+             # Tuner.fit() to the trainable's first line, to the fit
+             # worker's train_fn, and to its first step (the model's init
+             # on the card between the last two)
+             "trial_start_s": m["trial_started_at"] - t0,
+             "worker_start_s": m["started_at"] - t0,
+             "first_step_s": m["window"][0] - t0,
+             "window_s": m["window"][1] - m["window"][0],
+             "worker_pid": m["pid"], "trial_pid": m["trial_pid"],
+             "device": m["device"], "device_name": m["device_name"],
+             "max_memory_allocated_bytes": m["max_memory_allocated_bytes"],
+             "kernel_launches": m["kernel_launches"]} for m in rows],
+         overlap_s=end - start, expected_launches=expected,
+         restore_s=restore_s, restore_trial_starts=len(starts),
+         driver_pid=os.getpid(),
+         train_phase_tokens_per_sec=train_stats["tokens_per_sec"])
+    return {name: sum(m["kernel_launches"][name] for m in rows)
+            for name in FLASH_KERNELS}
+
+
+LIB_JOB_SCRIPT = '''"""A job's driver: a durable workflow whose first step serves
+requests on the card and whose second step fails on its first attempt."""
+import json
+import sys
+
+import ray_tpu_torch as rt
+from ray_tpu_torch import workflow
+
+
+@rt.remote(num_gpus=1)
+def serve_step(args):
+    """Step A: an engine from the seed serves the requests greedily;
+    returns the tokens and this process's paged launches."""
+    import os
+
+    from ray_tpu_torch.llm import InferenceEngine, Request
+    from ray_tpu_torch.ops import paged_attention
+
+    with open(os.path.join(args["mark_dir"], "serve_runs"), "a") as f:
+        f.write("x")
+    kernels = {name: getattr(paged_attention, attr)
+               for name, attr in args["kernels"].items()}
+    eng = InferenceEngine(args["preset"], **args["geometry"],
+                          attention_impl="auto", seed=args["seed"],
+                          device=args["device"])
+    before = {name: k.launches for name, k in kernels.items()}
+    reqs = [Request(f"wf{i}", p, max_new_tokens=args["new"])
+            for i, p in enumerate(args["prompts"])]
+    for r in reqs:
+        eng.add_request(r)
+    while any(not r.done for r in reqs):
+        eng.step()
+    return {"tokens": [list(r.generated) for r in reqs],
+            "launches": {n: k.launches - before[n]
+                         for n, k in kernels.items()},
+            "decode_steps": eng.metrics["decode_steps"],
+            "pid": os.getpid(), "device": str(eng.executor.device),
+            "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def sum_step(served, mark_dir):
+    """Step B, on a CPU worker: the sum of the served tokens. Its first
+    attempt fails."""
+    import os
+
+    mark = os.path.join(mark_dir, "sum_failed_once")
+    if not os.path.exists(mark):
+        open(mark, "w").close()
+        raise RuntimeError("sum_step fails on its first attempt")
+    return {"sum": sum(sum(t) for t in served["tokens"]), "served": served,
+            "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+if __name__ == "__main__":
+    with open(sys.argv[1]) as f:
+        args = json.load(f)
+    rt.init()  # the cluster's address comes in RAY_TPU_TORCH_ADDRESS
+    dag = workflow.step(sum_step)(workflow.step(serve_step)(args),
+                                  args["mark_dir"])
+    out = workflow.run(dag, workflow_id=args["workflow_id"],
+                       storage=args["storage"])
+    print("workflow output:", out["sum"])
+    rt.shutdown()
+'''
+
+
+def _proc_pids(cmdline: str) -> list:
+    """Processes whose command line is exactly ``cmdline``."""
+    return [pid for pid, cmd in _cmdlines() if cmd == cmdline]
+
+
+def _job_workflow(storage: str, seed: int) -> dict:
+    """A submitted job whose driver runs the workflow: it ends FAILED at
+    step B; ``workflow.resume`` here finishes it without running step A
+    again, whose tokens must equal an in-process engine's; then a
+    ``sleep`` job is stopped. Returns step A's paged launches."""
+    import shlex
+
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.job import JobStatus, JobSubmissionClient
+
+    cfg = PRESETS[APP_PRESET]
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in WF_PROMPTS]
+    job_dir = os.path.join(storage, "job")
+    mark_dir = os.path.join(storage, "marks")
+    wf_storage = os.path.join(storage, "workflows")
+    os.makedirs(job_dir)
+    os.makedirs(mark_dir)
+    args = {"preset": APP_PRESET, "device": APP_DEVICE, "seed": seed,
+            "geometry": _serve_geometry(), "prompts": prompts, "new": WF_NEW,
+            "mark_dir": mark_dir, "workflow_id": WF_ID,
+            "storage": wf_storage, "kernels": _paged_kernel_attrs()}
+    with open(os.path.join(job_dir, "driver.py"), "w") as f:
+        f.write(LIB_JOB_SCRIPT)
+    with open(os.path.join(job_dir, "args.json"), "w") as f:
+        json.dump(args, f)
+
+    client = JobSubmissionClient()
+    t0 = time.perf_counter()
+    jid = client.submit_job(
+        entrypoint=f"{shlex.quote(sys.executable)} driver.py args.json",
+        runtime_env={"working_dir": job_dir})
+    status = client.wait_until_terminal(jid, timeout=LIB_TIMEOUT_S)
+    job_s = time.perf_counter() - t0
+    logs = client.get_job_logs(jid)
+    if status != JobStatus.FAILED or \
+            "sum_step fails on its first attempt" not in logs:
+        raise AssertionError(f"job {jid} ended {status}; logs:\n{logs}")
+    if workflow.get_status(WF_ID, storage=wf_storage) != "FAILED":
+        raise AssertionError("the workflow's status is not FAILED")
+
+    runs = os.path.join(mark_dir, "serve_runs")
+    before = paged_launches()
+    t1 = time.perf_counter()
+    out = workflow.resume(WF_ID, storage=wf_storage,
+                          step_timeout_s=LIB_TIMEOUT_S)
+    resume_s = time.perf_counter() - t1
+    served = out["served"]
+    if os.path.getsize(runs) != 1 or paged_launches() != before:
+        raise AssertionError(f"step A ran {os.path.getsize(runs)} times; "
+                             f"this process's launches {paged_launches()}")
+    if workflow.get_status(WF_ID, storage=wf_storage) != "SUCCESSFUL" or \
+            out["sum"] != sum(sum(t) for t in served["tokens"]):
+        raise AssertionError(f"workflow output {out['sum']}")
+    if served["pid"] == os.getpid() or out["cuda_visible"] != "" or (
+            APP_DEVICE is None and (not served["device"].startswith("cuda")
+                                    or served["cuda_visible"] == "")):
+        raise AssertionError(f"step A in {served['pid']} on "
+                             f"{served['device']} (CUDA_VISIBLE_DEVICES "
+                             f"{served['cuda_visible']!r}), step B's "
+                             f"{out['cuda_visible']!r}")
+    launches = served["launches"]
+    expected = {name: cfg.n_layers * served["decode_steps"]
+                if name == paged_kernel_of(cfg.dtype) else 0
+                for name in PAGED_KERNELS}
+    if launches != expected or served["decode_steps"] == 0:
+        raise AssertionError(f"step A's paged launches {launches} != "
+                             f"{expected}")
+
+    # The same seed, prompts and shapes in this process.
+    torch.cuda.empty_cache()
+    eng = InferenceEngine(APP_PRESET, **_serve_geometry(),
+                          attention_impl="auto", seed=seed,
+                          device=APP_DEVICE)
+    reqs = _submit(eng, {f"wf{i}": p for i, p in enumerate(prompts)},
+                   WF_NEW)
+    _drain(eng, reqs)
+    want = [list(r.generated) for r in reqs]
+    del eng
+    torch.cuda.empty_cache()
+    if served["tokens"] != want:
+        raise AssertionError("step A's tokens differ from an in-process "
+                             "engine's")
+
+    # The shell forks sleep: stopping the job must end it too.
+    sleep = f"sleep {700 + os.getpid() % 1000}.5"
+    t2 = time.perf_counter()
+    sid = client.submit_job(entrypoint=f"{sleep}; echo after")
+    deadline = time.monotonic() + 60
+    while not _proc_pids(sleep):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"sleep job {sid}: "
+                                 f"{client.get_job_status(sid)}")
+        time.sleep(0.1)
+    if not client.stop_job(sid):
+        raise AssertionError(f"stop_job({sid}) refused")
+    stopped = client.wait_until_terminal(sid, timeout=60)
+    deadline = time.monotonic() + 10
+    while _proc_pids(sleep) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    if stopped != JobStatus.STOPPED or _proc_pids(sleep):
+        raise AssertionError(f"sleep job {stopped}, processes "
+                             f"{_proc_pids(sleep)}")
+    emit("libraries_job_workflow", preset=APP_PRESET, job_id=jid,
+         job_status=status, job_s=job_s, resume_s=resume_s,
+         step_a_runs=1, output_sum=out["sum"], requests=len(prompts),
+         new_tokens=WF_NEW, step_a_pid=served["pid"],
+         step_a_device=served["device"],
+         decode_steps=served["decode_steps"], kernel_launches=launches,
+         expected_launches=expected, tokens_equal_in_process=True,
+         stop_job={"status": stopped, "processes_left": 0,
+                   "seconds": time.perf_counter() - t2})
+    return launches
+
+
+def phase_libraries(train_stats: dict, seed: int = 0) -> dict:
+    """Tune, workflows and jobs on one port cluster (``init()`` with the
+    card as ``GPU``): the Tuner grid, then the job and its workflow; no
+    worker may be left after ``shutdown()``. Returns the flash launches of
+    the Tune fits and the paged launches of the workflow's step."""
+    import shutil
+
+    import ray_tpu_torch as rt
+
+    storage = tempfile.mkdtemp(prefix="libraries_")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    seconds = {}
+    launches = {}
+    rt.init()
+    try:
+        gpus = rt.cluster_resources().get("GPU", 0.0)
+        if gpus != float(torch.cuda.device_count()) or gpus < 1:
+            raise AssertionError(f"node reports GPU {gpus}, the host has "
+                                 f"{torch.cuda.device_count()} cards")
+        t = time.perf_counter()
+        launches["tune"] = _tune_grid(storage, train_stats, seed)
+        seconds["tune"] = time.perf_counter() - t
+        t = time.perf_counter()
+        launches["workflow"] = _job_workflow(storage, seed)
+        seconds["job_workflow"] = time.perf_counter() - t
+    finally:
+        try:
+            rt.shutdown()
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+    deadline = time.monotonic() + 20.0
+    while _worker_pids() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _worker_pids()
+    if left:
+        raise AssertionError(f"worker processes left after shutdown: {left}")
+    emit("libraries", phase_seconds=seconds, workers_left=0,
+         total_s=time.perf_counter() - t0)
+    return launches
+
+
 def _build_all() -> None:
     """One nvcc per CUDA source, all started together."""
     # one library per source: flash_bwd.cu holds the simt dQ and dK/dV
@@ -4400,6 +4904,7 @@ def main() -> int:
     app_launches, app_stats = phase_serve_app(serve_stats)
     leg = phase_serve_leg(app_stats)
     ladder_launches = phase_fleet_ladder()
+    lib_launches = phase_libraries(train_stats)
     kernels = []
     for name, pk in PAGED_KERNELS.items():
         kernels.append({
@@ -4440,6 +4945,9 @@ def main() -> int:
             "launches_batch": leg["batch"][name],
             # the f32 disaggregated app's decode replica (`disagg_parity`)
             "launches_f32_disagg_parity": leg["disagg_parity"][name],
+            # the submitted job's workflow step leased the card, counted
+            # in its worker (`libraries`, bf16)
+            "launches_workflow": lib_launches["workflow"][name],
             "max_abs_err": paged_err[name],
             "max_abs_err_verify_cases": paged_err_verify[name],
             **times["uniform"][name],
@@ -4458,6 +4966,9 @@ def main() -> int:
             # the compiled train loop's step stage, a process leased the
             # card (`train_loop`, bf16, TrainLoopConfig's default drive)
             "launches_train_loop": loop_launches[name],
+            # the two Tune trials' fit workers, each leased half of the
+            # card, summed (`libraries`, bf16)
+            "launches_tune": lib_launches["tune"][name],
             "launches_f32_train_parity": parity_launches[name],
             "max_abs_err": flash_err[name], **flash_times[name]})
     print(json.dumps({"kernels": kernels}))

@@ -16,8 +16,13 @@ shared-memory object store and ``GPU`` leases (``init``, ``remote``,
 app (``ray_tpu_torch.llm.build_llm_app``), and the Train and Data
 libraries (``ray_tpu_torch.train.TorchTrainer`` over
 ``ray_tpu_torch.data`` shards, with async checkpoints from
-``ray_tpu_torch.resilience``). A port cluster keeps its own
-session dir and environment names, so it never meets a ``ray_tpu`` one.
+``ray_tpu_torch.resilience``), Tune (``ray_tpu_torch.tune.Tuner``, whose
+trials reach the card through a ``TorchTrainer.fit``), durable workflows
+(``ray_tpu_torch.workflow``), job submission (``ray_tpu_torch.job``),
+actor pools, queues and ``multiprocessing.Pool`` (``ray_tpu_torch.util``)
+and the multi-node test harness (``ray_tpu_torch.cluster_utils``). A port
+cluster keeps its own session dir, environment names, results, workflow
+and job directories, so it never meets a ``ray_tpu`` one.
 
 Entry points: ``ray_tpu_torch.llm.InferenceEngine``, ``LLMDeployment``,
 ``build_llm_app``, ``init_pages``, ``params_from_numpy`` and
@@ -64,14 +69,15 @@ from .core.status import (
 
 __version__ = "0.1.0"
 
-_LAZY = ("data", "llm", "models", "observability", "ops", "resilience",
-         "serve", "train")
+_LAZY = ("chaos", "data", "llm", "models", "observability", "ops",
+         "resilience", "serve", "train")
 
 
 def __getattr__(name):
     # Subpackages load on first use: `ray_tpu_torch.llm.InferenceEngine`
-    # works right after `import ray_tpu_torch`, and a worker process that
-    # never touches them never pays for torch.
+    # and `ray_tpu_torch.chaos.run_plan(...)` work right after
+    # `import ray_tpu_torch`, and a worker process that never touches them
+    # never pays for torch.
     if name in _LAZY:
         import importlib
 

@@ -8,13 +8,12 @@
   that the RPC layer, raylet, store and compiled-loop stages consult.
 * ``runner``'s :func:`install` / :func:`uninstall` make a plan this
   process's chaos engine and register it with the GCS;
-  :func:`active_plan` reads the registration back.
+  :func:`active_plan` reads the registration back; :func:`run_plan`
+  drives one seeded scenario end to end (baseline, install, a workload,
+  by default :func:`default_workload`, uninstall, verify).
 * ``verifier``'s :class:`RecoveryVerifier` asserts the cluster heals
   after a fault: all tasks terminal, lease queues drained, refcounts at
   baseline, no orphaned ErrorEvents.
-
-The JAX package's ``run_plan`` and ``default_workload`` are not ported
-yet (ROADMAP queue A item 4).
 """
 
 from .clock import Clock, VirtualClock, WallClock, get_clock, set_clock
@@ -26,7 +25,7 @@ from .plan import (
     PlanChaos,
     load_plan,
 )
-from .runner import active_plan, install, uninstall
+from .runner import active_plan, default_workload, install, run_plan, uninstall
 from .verifier import ChaosVerificationError, RecoveryVerifier, VerifyResult
 
 __all__ = [
@@ -42,9 +41,11 @@ __all__ = [
     "VirtualClock",
     "WallClock",
     "active_plan",
+    "default_workload",
     "get_clock",
     "install",
     "load_plan",
+    "run_plan",
     "set_clock",
     "uninstall",
 ]

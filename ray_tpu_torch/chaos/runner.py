@@ -1,12 +1,13 @@
-"""Installing a compiled fault schedule in a process.
+"""Chaos runner: install a compiled fault schedule, drive a workload,
+then verify recovery.
 
-The part of ``ray_tpu/chaos/runner.py`` that the port has: ``install``,
-``uninstall`` and ``active_plan``. While a plan is installed its identity
-is registered in the GCS KV (``chaos:active_plan``), so every client can
-tell injected pain from real pain. A train loop's ``stage_init_hook``
-installs a ``kill_loop_stage`` plan this way inside its step stage.
-Partition and preemption targets resolve through ``util.state``, as in
-the JAX package.
+``run_plan(plan, seed=N)`` is the one-call form, surfaced as
+``ray_tpu_torch.chaos.run_plan()``. While a plan is installed its
+identity is registered in the GCS KV (``chaos:active_plan``), so every
+client can tell injected pain from real pain. A train loop's
+``stage_init_hook`` installs a ``kill_loop_stage`` plan with
+:func:`install` inside its step stage. Partition and preemption targets
+resolve through ``util.state``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import time
 
 from ..core.rpc import set_chaos
 from .plan import FaultSchedule, PlanChaos, load_plan
+from .verifier import RecoveryVerifier
 
 logger = logging.getLogger(__name__)
 
@@ -144,3 +146,73 @@ def active_plan() -> dict | None:
     except Exception:
         pass
     return None
+
+
+def default_workload() -> dict:
+    """A small task workload exercising retry, plasma, and lineage paths
+    under fault: used when ``run_plan`` is not given a workload."""
+    import ray_tpu_torch
+
+    @ray_tpu_torch.remote(max_retries=5)
+    def _chaos_probe(i):
+        return i * i
+
+    @ray_tpu_torch.remote(max_retries=5)
+    def _chaos_blob(_i):
+        import numpy as np
+
+        return np.zeros(64 * 1024, dtype=np.float32)  # plasma-sized
+
+    refs = [_chaos_probe.remote(i) for i in range(8)]
+    refs += [_chaos_blob.remote(i) for i in range(2)]
+    ok, failures = 0, 0
+    for ref in refs:
+        try:
+            ray_tpu_torch.get(ref, timeout=120)
+            ok += 1
+        except Exception:
+            failures += 1
+    del refs
+    return {"tasks": ok + failures, "ok": ok, "failures": failures}
+
+
+def run_plan(plan, seed: int = 0, workload=None, verify: bool = True,
+             verify_timeout_s: float = 60.0,
+             allowed_error_types=()) -> dict:
+    """Run one seeded chaos scenario end to end:
+
+    1. snapshot the verifier baseline,
+    2. compile + install the plan's fault schedule,
+    3. drive the workload (default: :func:`default_workload`),
+    4. uninstall the plan,
+    5. verify recovery (tasks terminal, lease queues drained, refcounts
+       back to baseline, no orphaned errors).
+
+    Returns the chaos report; raises ``ChaosVerificationError`` when
+    ``verify=True`` and an invariant fails.
+    """
+    plan = load_plan(plan)
+    schedule = plan.compile(seed)
+    verifier = RecoveryVerifier(timeout_s=verify_timeout_s,
+                                allowed_error_types=allowed_error_types)
+    baseline = verifier.snapshot_baseline()
+    engine = install(plan, seed)
+    try:
+        workload_report = (workload or default_workload)()
+    finally:
+        uninstall()
+    report = {
+        "plan": plan.name,
+        "seed": seed,
+        "schedule_digest": schedule.digest(),
+        "injections": {f"{k}:{m}" if m else k: n
+                       for (k, m), n in engine.injections_total.items()},
+        "injection_log": list(engine.injection_log),
+        "workload": workload_report,
+    }
+    if verify:
+        result = verifier.verify(baseline)
+        report["verify"] = {"ok": result.ok, "checks": result.checks,
+                            "violations": result.violations}
+        result.raise_if_failed()
+    return report

@@ -272,7 +272,14 @@ class CoreWorker:
         if mode == MODE_DRIVER:
             self.current_task_id = TaskID.for_driver_task(self.job_id)
         else:
-            self.current_task_id = TaskID.nil()
+            # Outside any task (a thread that outlives the task that
+            # started it, as a Tune trial's fit does) a worker submits
+            # under a parent of its own: task, actor and put ids derive
+            # from (parent, counter), and the nil parent that every worker
+            # shared gave two workers' first actors the same id.
+            self.current_task_id = TaskID.for_normal_task(
+                self.job_id, TaskID.nil(), int.from_bytes(hashlib.sha1(
+                    self.worker_id.encode()).digest()[:8], "little"))
         self._task_queues: dict[tuple, list] = {}
         # ray_tpu.cancel bookkeeping: cancelled task ids (never retried),
         # dispatched-task -> executing worker address, and (executor side)

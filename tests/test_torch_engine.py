@@ -313,7 +313,11 @@ def test_import_loads_no_jax_and_no_ray_tpu():
             "ray_tpu_torch.ops.paged_attention, ray_tpu_torch._cuda, "
             "ray_tpu_torch._device, "
             "ray_tpu_torch.ops.attention, ray_tpu_torch.models.llama, "
-            "ray_tpu_torch.serve, ray_tpu_torch.llm.serving\n"
+            "ray_tpu_torch.serve, ray_tpu_torch.llm.serving, "
+            "ray_tpu_torch.tune, ray_tpu_torch.workflow, ray_tpu_torch.job, "
+            "ray_tpu_torch.util.actor_pool, ray_tpu_torch.util.queue, "
+            "ray_tpu_torch.util.multiprocessing, ray_tpu_torch.cluster_utils, "
+            "ray_tpu_torch.chaos.runner\n"
             "from ray_tpu_torch.ops.attention import (flash_route, "
             "flash_forward_sm90_cuda, flash_dq_sm90_cuda, "
             "flash_dkdv_sm90_cuda)\n"
@@ -325,12 +329,14 @@ def test_import_loads_no_jax_and_no_ray_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # The compiled graphs, the chaos plans and verifier and the state API
-    # run in CPU workers and drivers: they load neither torch nor yaml at
-    # import.
+    # The compiled graphs, the chaos plans, runner and verifier, the state
+    # API, workflows, jobs and the queue run in CPU workers and job
+    # drivers: they load neither torch nor yaml at import.
     code = ("import sys, ray_tpu_torch.dag, ray_tpu_torch.chaos, "
             "ray_tpu_torch.chaos.plan, ray_tpu_torch.dag.loop, "
-            "ray_tpu_torch.chaos.verifier, ray_tpu_torch.util.state\n"
+            "ray_tpu_torch.chaos.verifier, ray_tpu_torch.util.state, "
+            "ray_tpu_torch.workflow, ray_tpu_torch.job, "
+            "ray_tpu_torch.util.queue, ray_tpu_torch.chaos.runner\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu', 'torch', 'yaml'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
