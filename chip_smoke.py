@@ -248,8 +248,9 @@ Phases, each printing JSON lines:
                 ``scale_to_zero`` and ``wake`` events); the wake's TTFT,
                 and the launches summed over every replica the state API
                 lists;
-  batch         ``build_llm_processor`` of llama3-1b (8 slots, max_len
-                1,024, batches of 16) over ``data.from_items`` of 32 rows
+  batch         ``build_llm_processor`` of llama3-1b's widths and 4 of its
+                16 layers (``BATCH_LAYERS``; 8 slots, max_len 1,024,
+                batches of 16) over ``data.from_items`` of 32 rows
                 with a per-row ``max_tokens`` column, on one engine actor
                 leased the whole card: every row generates no more than
                 its column, and the actor counts its own launches; then
@@ -269,11 +270,12 @@ Phases, each printing JSON lines:
                 =2``, JSON and CSV logger callbacks) whose trainable runs
                 ``TorchTrainer.fit`` with one worker leased half of the card
                 (``resources_per_worker={"CPU": 1, "GPU": 0.5}``): each fit
-                worker builds llama3-1b from the seed (remat "attn") and
-                takes 1 warm-up and 3 SGD steps at its trial's rate on 8 x
-                2,048 seeded tokens. Both trials must end TERMINATED, the
-                best result be the lower loss, each fit worker be a process
-                of its own on ``cuda`` with 16 launches a step of each sm90
+                worker builds llama3-1b's widths and 4 of its 16 layers
+                (``TUNE_LAYERS``) from the seed (remat "attn") and takes 1
+                warm-up and 3 SGD steps at its trial's rate on 8 x 2,048
+                seeded tokens. Both trials must end TERMINATED, the best
+                result be the lower loss, each fit worker be a process of
+                its own on ``cuda`` with 4 launches a step of each sm90
                 flash kernel and 0 simt (counted there), the two step
                 windows overlap, each trial directory hold its
                 ``result.json`` line and ``progress.csv`` row, and
@@ -295,7 +297,35 @@ Phases, each printing JSON lines:
                 worker must have run the split kernel 16 times a decode
                 step and the single one 0 times. A ``sleep`` job is
                 stopped: STOPPED, and its process gone. No worker may be
-                left after ``shutdown()``.
+                left after ``shutdown()``;
+  operator      the operator plane on a new cluster whose head and driver
+                nodes offer no card: an ``Autoscaler`` over a
+                ``LocalNodeProvider`` with one node type ``gpu`` = {CPU 2,
+                GPU 1} (at most 1, idle timeout 5 s), a ``ClientServer``
+                and the dashboard on loopback. A ``ray://`` driver in a
+                fresh interpreter starts a ``num_gpus=1`` actor that builds
+                llama3-1b bf16 on the card from the seed (the ``serve``
+                geometry) and streams 4 prompts x 64 greedy tokens back
+                over ``num_returns="streaming"``. The actor must pend until
+                the autoscaler launches the node: ``python -m
+                ray_tpu_torch.cli status`` shows the pending GPU demand
+                first (the reconciler starts only then), then GPU 1 total.
+                The tokens must equal an in-process engine's, the worker
+                must count 16 split launches a decode step over 64 steps
+                and 0 single, ``cli list nodes``, ``metrics`` (the GPU
+                usage series) and ``memory`` (the node's store line) exit
+                0, ``cli profile`` of the worker while its actor decodes
+                (1 s, across the whole capture) writes a trace naming the split
+                kernel's device function, and the dashboard's
+                ``/api/nodes``, ``/api/metrics`` and
+                ``/api/grafana_dashboard`` answer, every metric a GPU or
+                HBM panel names present. After the driver leaves, its
+                session is gone, the worker's process ends (the device
+                fence) and then the autoscaler terminates the idle node
+                within 5 + 10 s; ``cli status`` shows no GPU; no process is
+                left. Prints the launch to the worker's start, the ray://
+                first token, tokens per second beside the in-process
+                engine's, and the phase's seconds.
 
 Then a JSON line of the kernels, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -3787,6 +3817,7 @@ FLEET_TIMEOUT_S = 120.0
 LADDER_GEOMETRY = dict(max_slots=2, max_len=256, page_size=PAGE,
                        prefill_chunk_size=128, decode_steps_per_dispatch=8)
 BATCH_ROWS, BATCH_NEW = 32, 32
+BATCH_LAYERS = 4         # of llama3-1b's 16: the depth cut to fit the limit
 SPAN_WAIT_S = 20.0
 
 
@@ -4215,20 +4246,23 @@ def _run_processor(config, rows: list) -> list:
 
 
 def _batch(seed: int) -> dict:
-    """Data batch inference: llama3-1b over 32 rows with a per-row
+    """Data batch inference: llama3-1b (``BATCH_LAYERS`` deep) over 32
+    rows with a per-row
     ``max_tokens`` column on an engine actor leased the card; then an f32
     ``debug-128`` processor whose texts equal the same engine worker run
     in this process on the same batch."""
     from ray_tpu_torch.llm import LLMProcessorConfig
     from ray_tpu_torch.llm.batch import _EngineWorker
 
-    cfg = PRESETS[APP_PRESET]
+    cfg = dataclasses.replace(
+        PRESETS[APP_PRESET],
+        n_layers=min(BATCH_LAYERS, PRESETS[APP_PRESET].n_layers))
     rng = np.random.default_rng(seed)
     letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
     rows = [{"id": i,
              "prompt": bytes(rng.choice(letters, 16 + 24 * (i % 8))).decode(),
              "max_tokens": 8 * (1 + i % 4)} for i in range(BATCH_ROWS)]
-    config = LLMProcessorConfig(preset=APP_PRESET, concurrency=1,
+    config = LLMProcessorConfig(preset=cfg, concurrency=1,
                                 batch_size=16, max_slots=8, max_len=1024,
                                 max_tokens=BATCH_NEW, device=APP_DEVICE)
     torch.cuda.empty_cache()
@@ -4274,7 +4308,8 @@ def _batch(seed: int) -> dict:
             [r["n"] for r in got32] != list(want32["num_generated_tokens"]):
         raise AssertionError(f"f32 batch {[r['text'] for r in got32]} != "
                              f"in-process {want32['generated_text']}")
-    emit("batch", preset=APP_PRESET, rows=len(out), output_tokens=n_tokens,
+    emit("batch", preset=APP_PRESET, layers=cfg.n_layers, rows=len(out),
+         output_tokens=n_tokens,
          wall_s=wall, rows_per_s=len(out) / wall,
          output_tok_per_s=n_tokens / wall, rows_short_of_column=short,
          actor_pid=pids.pop(), actor_device=out[0]["device"],
@@ -4389,6 +4424,7 @@ def phase_fleet_ladder(seed: int = 0) -> dict:
 # card serves on the paged kernel, a CPU step fails once and is resumed.
 TUNE_LRS = (2.0, 0.5)
 TUNE_WARMUP, TUNE_STEPS = 1, 3
+TUNE_LAYERS = 4          # of llama3-1b's 16: the depth cut to fit the limit
 TUNE_WORKER = {"CPU": 1, "GPU": 0.5}
 LIB_TIMEOUT_S = 600.0
 WF_PROMPTS = (16, 40, 77, 120)   # prompt lengths of the workflow's requests
@@ -4408,9 +4444,10 @@ def _paged_kernel_attrs() -> dict:
 
 
 def tune_fit_fn(config: dict) -> None:
-    """The train_fn of each Tune trial's ``TorchTrainer``: llama3-1b from
-    the seed (remat "attn") on the card, one warm-up and ``timed`` SGD
-    steps at the trial's learning rate on one batch of seeded tokens.
+    """The train_fn of each Tune trial's ``TorchTrainer``: llama3-1b's
+    widths and ``layers`` of its layers from the seed (remat "attn") on
+    the card, one warm-up and ``timed`` SGD steps at the trial's learning
+    rate on one batch of seeded tokens.
     Reports the losses, the step window on the wall clock, the timed
     steps' tokens per second and this process's flash launches."""
     import time
@@ -4429,7 +4466,8 @@ def tune_fit_fn(config: dict) -> None:
 
     device = torch.device(config["device"] or "cuda")
     cfg = dataclasses.replace(PRESETS[config["preset"]],
-                              remat_policy="attn")
+                              remat_policy="attn",
+                              n_layers=config["layers"])
     params = init_params(cfg, torch.Generator(device).manual_seed(
         config["seed"]))
     leaves = []
@@ -4504,16 +4542,19 @@ def _experiment_states(exp_dir: str) -> list:
 
 
 def _tune_grid(storage: str, train_stats: dict, seed: int) -> dict:
-    """The Tuner grid of two llama3-1b fits sharing the card, then
-    ``Tuner.restore`` of the finished experiment. Returns the flash
-    launches summed over the two fit workers."""
+    """The Tuner grid of two llama3-1b fits (``TUNE_LAYERS`` deep) sharing
+    the card, then ``Tuner.restore`` of the finished experiment. Returns
+    the flash launches summed over the two fit workers."""
     from ray_tpu_torch import tune
     from ray_tpu_torch.train import RunConfig
 
-    cfg = PRESETS[APP_PRESET]
+    cfg = dataclasses.replace(
+        PRESETS[APP_PRESET],
+        n_layers=min(TUNE_LAYERS, PRESETS[APP_PRESET].n_layers))
     fit = dict(preset=APP_PRESET, device=APP_DEVICE, seed=seed,
                batch=TRAIN_BATCH, seq=TRAIN_SEQ, chunk=TRAIN_CHUNK,
-               warmup=TUNE_WARMUP, timed=TUNE_STEPS, kernels=_kernel_attrs())
+               warmup=TUNE_WARMUP, timed=TUNE_STEPS, kernels=_kernel_attrs(),
+               layers=cfg.n_layers)
     space = {"lr": tune.grid_search(list(TUNE_LRS)), "fit": fit,
              "worker_resources": TUNE_WORKER,
              "storage": os.path.join(storage, "fits")}
@@ -4589,7 +4630,8 @@ def _tune_grid(storage: str, train_stats: dict, seed: int) -> dict:
             _experiment_states(exp_dir) != states:
         raise AssertionError(f"restore started trials {starts}, new "
                              f"workers {sorted(new_pids)}")
-    emit("libraries_tune", preset=APP_PRESET, lrs=list(TUNE_LRS),
+    emit("libraries_tune", preset=APP_PRESET, layers=cfg.n_layers,
+         lrs=list(TUNE_LRS),
          warmup_steps=TUNE_WARMUP, timed_steps=TUNE_STEPS,
          batch=TRAIN_BATCH, seq=TRAIN_SEQ, worker_resources=TUNE_WORKER,
          fit_s=fit_s, best_lr=best.metrics["lr"],
@@ -4683,6 +4725,40 @@ if __name__ == "__main__":
 '''
 
 
+_IN_PROCESS: dict = {}  # (seed, new, prompts) -> (tokens in order, stats)
+
+
+def _in_process_tokens(prompts: dict, new: int, seed: int) -> tuple:
+    """Greedy tokens of an engine built in this process from ``seed`` in
+    the serve geometry, by request name, and its first-token seconds and
+    tokens per second (the engine's first run, as the remote ones). The
+    workflow's step and the operator's actor serve the same prompts: the
+    engine runs once for both."""
+    key = (seed, new, tuple(tuple(p) for p in prompts.values()))
+    if key not in _IN_PROCESS:
+        torch.cuda.empty_cache()
+        eng = InferenceEngine(APP_PRESET, **_serve_geometry(),
+                              attention_impl="auto", seed=seed,
+                              device=APP_DEVICE)
+        t0 = time.perf_counter()
+        reqs = _submit(eng, {str(i): p for i, p in
+                             enumerate(prompts.values())}, new)
+        first = None
+        while any(not r.done for r in reqs):
+            eng.step()
+            if first is None and any(r.generated for r in reqs):
+                first = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        tokens = [list(r.generated) for r in reqs]
+        del eng
+        torch.cuda.empty_cache()
+        _IN_PROCESS[key] = (tokens, {
+            "first_token_s": first, "wall_s": wall,
+            "tokens_per_sec": sum(len(t) for t in tokens) / wall})
+    tokens, stats = _IN_PROCESS[key]
+    return dict(zip(prompts, tokens)), stats
+
+
 def _proc_pids(cmdline: str) -> list:
     """Processes whose command line is exactly ``cmdline``."""
     return [pid for pid, cmd in _cmdlines() if cmd == cmdline]
@@ -4759,17 +4835,9 @@ def _job_workflow(storage: str, seed: int) -> dict:
                              f"{expected}")
 
     # The same seed, prompts and shapes in this process.
-    torch.cuda.empty_cache()
-    eng = InferenceEngine(APP_PRESET, **_serve_geometry(),
-                          attention_impl="auto", seed=seed,
-                          device=APP_DEVICE)
-    reqs = _submit(eng, {f"wf{i}": p for i, p in enumerate(prompts)},
-                   WF_NEW)
-    _drain(eng, reqs)
-    want = [list(r.generated) for r in reqs]
-    del eng
-    torch.cuda.empty_cache()
-    if served["tokens"] != want:
+    want, _ = _in_process_tokens({f"wf{i}": p for i, p in enumerate(prompts)},
+                                 WF_NEW, seed)
+    if served["tokens"] != list(want.values()):
         raise AssertionError("step A's tokens differ from an in-process "
                              "engine's")
 
@@ -4846,6 +4914,503 @@ def phase_libraries(train_stats: dict, seed: int = 0) -> dict:
     return launches
 
 
+OP_NODE_TYPE = "gpu"
+OP_NODE = {"CPU": 2, "GPU": 1}   # the node type the autoscaler launches
+OP_IDLE_S = 5.0                  # its idle timeout
+OP_TERMINATE_SLACK_S = 10.0      # past the idle timeout, from the driver's exit
+OP_PROFILE_S = 1.0
+OP_TIMEOUT_S = 600.0
+OP_CLI_TIMEOUT_S = 180.0
+
+OP_DRIVER_SCRIPT = '''"""A ray:// driver: a GPU actor that builds the engine on the card from a
+seed, streams greedy tokens back, then decodes until told to stop."""
+import json
+import sys
+import time
+
+import ray_tpu_torch as rt
+
+
+def say(event, **fields):
+    print(json.dumps({"event": event, "t": time.time(), **fields}),
+          flush=True)
+
+
+@rt.remote(num_gpus=1)
+class Decoder:
+    def __init__(self, args):
+        import os
+
+        self.started_at = time.time()
+        import torch
+
+        from ray_tpu_torch.llm import InferenceEngine
+        from ray_tpu_torch.ops import paged_attention
+
+        self.kernels = {name: getattr(paged_attention, attr)
+                        for name, attr in args["kernels"].items()}
+        self.eng = InferenceEngine(args["preset"], **args["geometry"],
+                                   attention_impl="auto", seed=args["seed"],
+                                   device=args["device"])
+        ctx = rt.get_runtime_context()
+        device = self.eng.executor.device
+        self.info = {
+            "pid": os.getpid(), "worker_id": ctx.worker_id,
+            "node_id": ctx.node_id, "device": str(device),
+            "device_name": torch.cuda.get_device_name(device)
+            if device.type == "cuda" else "cpu",
+            "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "started_at": self.started_at, "ready_at": time.time()}
+
+    def describe(self):
+        return self.info
+
+    def stream(self, prompts, new):
+        """Each engine step's new tokens, then this process's paged
+        launches and decode steps over the run."""
+        from ray_tpu_torch.llm import Request
+
+        before = {n: k.launches for n, k in self.kernels.items()}
+        steps0 = self.eng.metrics["decode_steps"]
+        reqs = [Request(rid, p, max_new_tokens=new)
+                for rid, p in prompts.items()]
+        for r in reqs:
+            self.eng.add_request(r)
+        sent = {r.request_id: 0 for r in reqs}
+        while any(not r.done for r in reqs):
+            self.eng.step()
+            out = {}
+            for r in reqs:
+                if len(r.generated) > sent[r.request_id]:
+                    out[r.request_id] = list(r.generated[sent[r.request_id]:])
+                    sent[r.request_id] = len(r.generated)
+            if out:
+                yield {"tokens": out}
+        yield {"launches": {n: k.launches - before[n]
+                            for n, k in self.kernels.items()},
+               "decode_steps": self.eng.metrics["decode_steps"] - steps0}
+
+    def decode_until(self, prompts, new, start_path, stop_path):
+        """Serve the prompts again and again until ``stop_path`` exists;
+        ``start_path`` appears once the first step has run."""
+        import os
+
+        from ray_tpu_torch.llm import Request
+
+        t0 = time.time()
+        steps0 = self.eng.metrics["decode_steps"]
+        rounds = 0
+        while not os.path.exists(stop_path):
+            reqs = [Request(f"{rid}-w{rounds}", p, max_new_tokens=new)
+                    for rid, p in prompts.items()]
+            for r in reqs:
+                self.eng.add_request(r)
+            while any(not r.done for r in reqs):
+                self.eng.step()
+                if not os.path.exists(start_path):
+                    open(start_path, "w").close()
+            rounds += 1
+        return {"window": [t0, time.time()], "rounds": rounds,
+                "decode_steps": self.eng.metrics["decode_steps"] - steps0}
+
+
+if __name__ == "__main__":
+    with open(sys.argv[1]) as f:
+        args = json.load(f)
+    rt.init(address="ray://" + args["client_address"])
+    say("connected")
+    dec = Decoder.remote(args)
+    say("actor_submitted")
+    say("actor_ready", info=rt.get(dec.describe.remote(),
+                                   timeout=args["timeout"]))
+    tokens = {rid: [] for rid in args["prompts"]}
+    t0 = time.perf_counter()
+    first = None
+    chunks = 0
+    for ref in dec.stream.options(num_returns="streaming").remote(
+            args["prompts"], args["new"]):
+        item = rt.get(ref, timeout=args["timeout"])
+        if "tokens" in item:
+            if first is None:
+                first = time.perf_counter() - t0
+            chunks += 1
+            for rid, toks in item["tokens"].items():
+                tokens[rid].extend(toks)
+        else:
+            counts = item
+    wall = time.perf_counter() - t0
+    say("streamed", tokens=tokens, first_token_s=first, wall_s=wall,
+        chunks=chunks,
+        tokens_per_sec=sum(len(t) for t in tokens.values()) / wall,
+        **counts)
+    window = dec.decode_until.remote(args["prompts"], args["new"],
+                                     args["start_path"], args["stop_path"])
+    say("decoding")
+    say("decoded", **rt.get(window, timeout=args["timeout"]))
+    rt.shutdown()
+    say("done")
+'''
+
+
+class _Events:
+    """The driver's JSON lines, read on a thread of their own."""
+
+    def __init__(self, proc):
+        import queue
+
+        self.proc = proc
+        self.lines = []
+        self._q = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            if line.startswith("{"):
+                self._q.put(json.loads(line))
+        self._q.put(None)
+
+    def next(self, event: str, timeout: float = OP_TIMEOUT_S) -> dict:
+        import queue
+
+        try:
+            ev = self._q.get(timeout=timeout)
+        except queue.Empty:
+            ev = None
+        if ev is None or ev["event"] != event:
+            raise AssertionError(f"driver: expected {event!r}, got {ev}; "
+                                 f"output {''.join(self.lines)[-2000:]}")
+        return ev
+
+
+def _cli(address: str, *args) -> tuple:
+    """``python -m ray_tpu_torch.cli --address ... args``: its stdout and
+    its seconds; fails the phase unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.cli", "--address", address,
+         *args], capture_output=True, text=True, timeout=OP_CLI_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {' '.join(args)} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def _status_gpu(out: str) -> tuple:
+    """`cli status`: the GPU total (0 where no node offers one) and the
+    pending GPU demand's count."""
+    total, pending = 0.0, 0
+    head, _, demand = out.partition("pending demand:")
+    for line in head.splitlines():
+        if line.strip().startswith("GPU:"):
+            total = float(line.split("/")[1].split()[0])
+    for line in demand.splitlines():
+        if "GPU:" in line:
+            pending += int(line.rsplit("x", 1)[1])
+    return total, pending
+
+
+def _dash(url: str, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _panel_metrics(panel: dict) -> set:
+    import re
+
+    return {m for t in panel["targets"]
+            for m in re.findall(r"\b(ray_tpu_[a-z_]+)", t["expr"])}
+
+
+def phase_operator(seed: int = 0) -> dict:
+    """The operator plane: a port cluster whose head offers no card, an
+    ``Autoscaler`` over a ``LocalNodeProvider`` with one ``gpu`` node
+    type, a ``ClientServer`` and the dashboard on loopback; a ``ray://``
+    driver in a fresh interpreter whose GPU actor pends until the
+    autoscaler launches the node, builds llama3-1b on the card and
+    streams greedy tokens; watched through the CLI (`status`, `list
+    nodes`, `metrics`, `memory`, `profile`) and the dashboard; the idle
+    node terminated after the driver leaves. Returns the actor's paged
+    launches over the streamed run."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import (Autoscaler, LocalNodeProvider,
+                                          NodeTypeConfig)
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+    from ray_tpu_torch.util.client import ClientServer
+
+    cfg = PRESETS[APP_PRESET]
+    rng = np.random.default_rng(seed)
+    prompts = {f"op{i}": rng.integers(0, cfg.vocab_size, n).tolist()
+               for i, n in enumerate(WF_PROMPTS)}
+    work = tempfile.mkdtemp(prefix="operator_")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # Each raylet offers the host's cards unless told otherwise: the head
+    # and this driver's node offer none, so only a launched node can
+    # take the actor.
+    cluster = Cluster(head_node_args={"num_cpus": 2, "resources": {"GPU": 0}})
+    rt.init(address=cluster.address, num_cpus=0, resources={"GPU": 0})
+    address = cluster.address
+    launched, terminated = [], []
+
+    class Provider(LocalNodeProvider):
+        """The harness's provider, with each launch and termination's
+        wall time."""
+
+        def create_node(self, node_type, resources):
+            iid = super().create_node(node_type, resources)
+            launched.append((iid, time.time()))
+            return iid
+
+        def terminate_node(self, instance_id):
+            super().terminate_node(instance_id)
+            terminated.append((instance_id, time.time()))
+
+    provider = Provider(cluster)
+
+    def gcs_call(method, payload):
+        return cluster._loop.run_sync(
+            getattr(cluster.gcs, f"handle_{method}")(payload))
+
+    scaler = Autoscaler(gcs_call, provider,
+                        [NodeTypeConfig(OP_NODE_TYPE, dict(OP_NODE),
+                                        max_workers=1)],
+                        idle_timeout_s=OP_IDLE_S, launch_cooldown_s=0.5)
+    server = ClientServer(port=0)
+    dash = start_dashboard()
+    proc = None
+    stats = {}
+    try:
+        if rt.cluster_resources().get("GPU", 0.0):
+            raise AssertionError("the cluster offers a card before any "
+                                 "launch")
+        args = {"client_address": server.address, "preset": APP_PRESET,
+                "device": APP_DEVICE, "seed": seed,
+                "geometry": _serve_geometry(), "prompts": prompts,
+                "new": WF_NEW, "kernels": _paged_kernel_attrs(),
+                "timeout": OP_TIMEOUT_S,
+                "start_path": os.path.join(work, "decoding"),
+                "stop_path": os.path.join(work, "stop")}
+        with open(os.path.join(work, "driver.py"), "w") as f:
+            f.write(OP_DRIVER_SCRIPT)
+        with open(os.path.join(work, "args.json"), "w") as f:
+            json.dump(args, f)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        # A fresh interpreter: this process has CUDA up and must not fork.
+        t_driver = time.perf_counter()
+        with open(os.path.join(work, "driver.err"), "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(work, "driver.py"),
+                 os.path.join(work, "args.json")],
+                stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+                cwd=work)
+        events = _Events(proc)
+        events.next("connected")
+        events.next("actor_submitted")
+
+        # The actor pends: the CLI sees its demand and no card. The
+        # reconciler starts only then, so the CLI reads the demand before
+        # the launch takes it.
+        deadline = time.monotonic() + OP_TIMEOUT_S
+        polls = 0
+        while True:
+            out, status_s = _cli(address, "status")
+            polls += 1
+            gpus, pending = _status_gpu(out)
+            if pending:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"no pending GPU demand:\n{out}")
+            time.sleep(0.5)
+        if gpus or launched:
+            raise AssertionError(f"GPU {gpus} before the launch:\n{out}")
+        stats["status_pending"] = {"gpu_total": gpus, "gpu_pending": pending,
+                                   "polls": polls, "cli_s": status_s}
+        scaler.start(period_s=0.5)
+
+        info = events.next("actor_ready")["info"]
+        (iid, t_launch), = launched
+        node_id = provider.node_id_of(iid)
+        if info["node_id"] != node_id or info["pid"] == os.getpid():
+            raise AssertionError(f"actor on node {info['node_id']} (the "
+                                 f"launched node is {node_id}), pid "
+                                 f"{info['pid']}")
+        if APP_DEVICE is None and (not info["device"].startswith("cuda")
+                                   or info["cuda_visible"] == ""):
+            raise AssertionError(f"actor on {info['device']} "
+                                 f"(CUDA_VISIBLE_DEVICES "
+                                 f"{info['cuda_visible']!r})")
+        stats["launch_to_worker_s"] = info["started_at"] - t_launch
+        stats["launch_to_actor_ready_s"] = info["ready_at"] - t_launch
+        out, _ = _cli(address, "status")
+        gpus, pending = _status_gpu(out)
+        if gpus != float(OP_NODE["GPU"]) or pending:
+            raise AssertionError(f"after the launch, GPU {gpus} total and "
+                                 f"{pending} pending:\n{out}")
+        stats["status_after_launch"] = out.splitlines()
+
+        streamed = events.next("streamed")
+        kernel = paged_kernel_of(cfg.dtype)
+        expected = {name: cfg.n_layers * streamed["decode_steps"]
+                    if name == kernel else 0 for name in PAGED_KERNELS}
+        if streamed["launches"] != expected or \
+                streamed["decode_steps"] != WF_NEW:
+            raise AssertionError(f"actor's paged launches "
+                                 f"{streamed['launches']} over "
+                                 f"{streamed['decode_steps']} decode steps "
+                                 f"!= {expected}")
+
+        with ThreadPoolExecutor(3) as pool:
+            (out, _), (metrics_out, _), (memory_out, _) = pool.map(
+                lambda cmd: _cli(address, *cmd),
+                (("list", "nodes"), ("metrics",), ("memory",)))
+        if node_id[:12] not in out:
+            raise AssertionError(f"list nodes misses {node_id}:\n{out}")
+        used = [line for line in metrics_out.splitlines() if line.startswith(
+            'ray_tpu_resource_used{resource="GPU"}')]
+        if not used:
+            raise AssertionError("metrics has no GPU usage:\n"
+                                 + metrics_out[-3000:])
+        stats["metrics_gpu_used"] = float(used[0].split()[-1])
+        out = memory_out
+        node_line = [line for line in out.splitlines()
+                     if line.startswith(f"node {node_id[:12]}  store")]
+        if not node_line:
+            raise AssertionError(f"memory misses node {node_id}:\n{out}")
+        stats["memory_gpu_node"] = node_line[0]
+
+        nodes = _dash(dash, "/api/nodes")
+        metrics = _dash(dash, "/api/metrics")
+        names = {m["name"] for m in metrics}
+        series = {(m["name"], m["tags"].get("resource")) for m in metrics}
+        grafana = _dash(dash, "/api/grafana_dashboard")
+        gpu_panels = [p for p in grafana["panels"] if "GPU" in p["title"]
+                      or "HBM" in p["title"]]
+        wanted = set().union(*(_panel_metrics(p) for p in gpu_panels))
+        if not any(n["node_id"] == node_id and n["state"] == "ALIVE"
+                   for n in nodes) or len(gpu_panels) < 3 or \
+                not wanted <= names or not {
+                    ("ray_tpu_resource_used", "GPU"),
+                    ("ray_tpu_resource_total", "GPU")} <= series:
+            raise AssertionError(f"dashboard: panels "
+                                 f"{[p['title'] for p in gpu_panels]} name "
+                                 f"{sorted(wanted - names)} missing")
+        stats["dashboard"] = {"gpu_panels": [p["title"] for p in gpu_panels],
+                              "panel_metrics": sorted(wanted)}
+
+        # A profile of the worker while its actor decodes.
+        events.next("decoding")
+        deadline = time.monotonic() + OP_TIMEOUT_S
+        while not os.path.exists(args["start_path"]):
+            if time.monotonic() > deadline or proc.poll() is not None:
+                raise AssertionError("the actor never started decoding")
+            time.sleep(0.05)
+        t_prof = time.time()
+        out, prof_s = _cli(address, "--json", "profile", "--node",
+                           node_id[:12], "--worker", info["worker_id"],
+                           "--duration", str(OP_PROFILE_S))
+        t_prof_end = time.time()
+        open(args["stop_path"], "w").close()
+        prof = json.loads(out)
+        decoded = events.next("decoded")
+        with open(os.path.join(prof["path"], "trace.json")) as f:
+            trace = json.load(f)
+        shutil.rmtree(prof["path"], ignore_errors=True)
+        kevents = [e for e in trace.get("traceEvents", [])
+                   if e.get("cat") == "kernel"]
+        device_fn = (PAGED_KERNELS[kernel].source.rsplit(".", 1)[0]
+                     + "_kernel" if kernel in PAGED_KERNELS else None)
+        named = [e for e in kevents
+                 if device_fn and device_fn in e.get("name", "")]
+        w0, w1 = decoded["window"]
+        if prof.get("worker_id") != info["worker_id"] or \
+                (device_fn and not named) or not w0 <= t_prof or \
+                not w1 >= t_prof_end:
+            raise AssertionError(
+                f"profile of {prof.get('worker_id')}: {len(named)} "
+                f"{device_fn} of {len(kevents)} kernel events; decoding "
+                f"{w0}-{w1}, capture {t_prof}-{t_prof_end}")
+        stats["profile"] = {
+            "cli_s": prof_s, "duration_s": OP_PROFILE_S,
+            "kernel_events": len(kevents), "device_function": device_fn,
+            "device_function_events": len(named),
+            "decoding_rounds": decoded["rounds"],
+            "decoding_steps": decoded["decode_steps"]}
+
+        events.next("done")
+        if proc.wait(timeout=60) != 0:
+            raise AssertionError(f"driver exited {proc.returncode}")
+        t_exit = time.time()
+        stats["driver_s"] = time.perf_counter() - t_driver
+
+        # The session goes with the driver; the worker's fence, then the
+        # idle node's termination.
+        deadline = time.monotonic() + OP_IDLE_S + OP_TERMINATE_SLACK_S
+        worker_gone = None
+        while time.monotonic() < deadline and (not terminated
+                                               or worker_gone is None):
+            if worker_gone is None and not os.path.exists(
+                    f"/proc/{info['pid']}"):
+                worker_gone = time.time()
+            time.sleep(0.1)
+        if server._sessions or not terminated or worker_gone is None or \
+                worker_gone > terminated[0][1]:
+            raise AssertionError(
+                f"sessions {list(server._sessions)}; node terminated "
+                f"{terminated}, worker gone at {worker_gone}, driver exit "
+                f"{t_exit}")
+        out, _ = _cli(address, "status")
+        gpus, pending = _status_gpu(out)
+        if gpus or pending or provider.non_terminated_nodes():
+            raise AssertionError(f"after the termination:\n{out}")
+        stats["worker_gone_after_exit_s"] = worker_gone - t_exit
+        stats["terminated_after_exit_s"] = terminated[0][1] - t_exit
+        stats["status_after_terminate"] = out.splitlines()
+    finally:
+        scaler.stop()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        stop_dashboard()
+        server.stop()
+        try:
+            rt.shutdown()
+        finally:
+            cluster.shutdown()
+            shutil.rmtree(work, ignore_errors=True)
+    deadline = time.monotonic() + 20.0
+    while _worker_pids() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _worker_pids()
+    if left:
+        raise AssertionError(f"worker processes left after shutdown: {left}")
+
+    want, local = _in_process_tokens(prompts, WF_NEW, seed)
+    if streamed["tokens"] != want:
+        raise AssertionError("the ray:// tokens differ from an in-process "
+                             "engine's")
+    emit("operator", preset=APP_PRESET, requests=len(prompts),
+         new_tokens=WF_NEW, node_type={OP_NODE_TYPE: OP_NODE},
+         idle_timeout_s=OP_IDLE_S, actor=info,
+         first_token_s=streamed["first_token_s"],
+         stream_wall_s=streamed["wall_s"], chunks=streamed["chunks"],
+         tokens_per_sec=streamed["tokens_per_sec"],
+         in_process=local, tokens_equal_in_process=True,
+         decode_steps=streamed["decode_steps"],
+         kernel_launches=streamed["launches"], expected_launches=expected,
+         workers_left=0, phase_s=time.perf_counter() - t_phase, **stats)
+    return streamed["launches"]
+
+
 def _build_all() -> None:
     """One nvcc per CUDA source, all started together."""
     # one library per source: flash_bwd.cu holds the simt dQ and dK/dV
@@ -4905,6 +5470,7 @@ def main() -> int:
     leg = phase_serve_leg(app_stats)
     ladder_launches = phase_fleet_ladder()
     lib_launches = phase_libraries(train_stats)
+    op_launches = phase_operator()
     kernels = []
     for name, pk in PAGED_KERNELS.items():
         kernels.append({
@@ -4948,6 +5514,9 @@ def main() -> int:
             # the submitted job's workflow step leased the card, counted
             # in its worker (`libraries`, bf16)
             "launches_workflow": lib_launches["workflow"][name],
+            # the ray:// driver's actor on the autoscaler-launched node,
+            # counted in its worker (`operator`, bf16)
+            "launches_operator": op_launches[name],
             "max_abs_err": paged_err[name],
             "max_abs_err_verify_cases": paged_err_verify[name],
             **times["uniform"][name],

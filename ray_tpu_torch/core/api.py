@@ -71,9 +71,10 @@ def init(
         if address is not None and address.startswith("ray://"):
             # Ray Client mode: a REMOTE driver proxied through a cluster-
             # side ClientServer (reference util/client/__init__.py:200).
-            raise NotImplementedError(
-                "ray:// client addresses are not ported yet (ROADMAP queue A "
-                "item 4: util.client)")
+            from ..util.client import connect
+
+            set_global_worker(connect(address))
+            return {"address": address, "node_id": "client"}
         if address is None:
             _node = Node(
                 head=True,

@@ -905,6 +905,7 @@ class GcsServer:
                 _stamp_creation("FAILED")
                 return
             pg_id = spec.get("placement_group_id") or b""
+            wait_infeasible = False
             if pg_id:
                 # PG-bundled actor: the bundle RESERVED its resources, so
                 # availability-based selection would see a full cluster and
@@ -918,6 +919,9 @@ class GcsServer:
                            else (locs[0] if locs else None))
             else:
                 node_id = self._select_node(resources, strategy)
+                if node_id is None:
+                    node_id = self._infeasible_host(strategy)
+                    wait_infeasible = node_id is not None
             if node_id is None:
                 await asyncio.sleep(0.5)
                 continue
@@ -927,7 +931,8 @@ class GcsServer:
             try:
                 lease = await client.call(
                     "RequestWorkerLease",
-                    {"spec": spec, "dedicated": True},
+                    {"spec": spec, "dedicated": True,
+                     "wait_infeasible": wait_infeasible},
                     timeout=get_config().worker_register_timeout_s + 10.0,
                 )
             except Exception as e:
@@ -999,6 +1004,20 @@ class GcsServer:
         record["death_cause"] = record.get("death_cause") or "no node could schedule the actor"
         _stamp_creation("FAILED")
         await self._publish_actor(record)
+
+    def _infeasible_host(self, strategy: dict | None) -> str | None:
+        """A live raylet to queue an actor lease no node can take. Its
+        infeasible wait reports the shape as pending demand in its
+        heartbeats (what an autoscaler launches nodes for) and spills the
+        lease back once a node that fits registers; without it such an
+        actor was never seen as demand and died after its attempts. Not
+        for node-affinity or label strategies, which name their nodes."""
+        strategy = strategy or {}
+        if strategy.get("type") == "node_affinity" or strategy.get("labels"):
+            return None
+        alive = sorted(nid for nid, n in self._nodes.items()
+                       if n.get("state") == "ALIVE" and not n.get("draining"))
+        return alive[0] if alive else None
 
     def _select_node(self, resources: dict, strategy: dict | None = None) -> str | None:
         from .scheduling import select_node_for_resources

@@ -1310,7 +1310,10 @@ class Raylet:
                     return {"spillback": True, "node_address": node["address"], "node_id": pick}
 
         if not request.subset_of(self.resources.total):
-            if grant_only_local:
+            # A dedicated lease the GCS queued here because no node fits
+            # (``wait_infeasible``) waits below like any other, so its
+            # shape is reported as demand.
+            if grant_only_local and not p.get("wait_infeasible"):
                 return {"granted": False, "reason": "infeasible on this node"}
             # Infeasible locally: wait (bounded) for a feasible peer — the
             # node table may be stale, a node may be joining, or the
