@@ -29,7 +29,8 @@ Phases, each printing JSON lines:
                 (``flash_route``: bf16 takes the sm90 forward, dQ and dK/dV,
                 f32 the simt kernels) against their plain versions:
                 llama3-1b shapes (causal at bench.py's 8 x 2048, non-causal,
-                f32), and in bf16 every head_dim 16/32/64/128 with GQA
+                f32), mixtral-8x7b-ish's (head_dim 128, causal, 8 x 2048,
+                bf16), and in bf16 every head_dim 16/32/64/128 with GQA
                 groups 1 and 4, S 1/100/257/1000, causal and not; at the
                 main shape the simt kernels on bf16 too;
   flash_time    each flash kernel at [8, 32, 2048, 64] / [8, 8, 2048, 64]
@@ -37,7 +38,9 @@ Phases, each printing JSON lines:
                 (forward, and its backward for dQ and dK/dV; a yardstick
                 only, over K/V repeated to the q heads beforehand); each
                 sm90 kernel also beside the simt kernel it replaces on bf16
-                (``previous_ms``), which it must beat 4x;
+                (``previous_ms``), which it must beat 4x; then the sm90
+                kernels the same way at [8, 32, 2048, 128] / [8, 8, 2048,
+                128] (``moe_shape``, mixtral-8x7b-ish's attention);
   lm_head_grad  one loss chunk's bf16 lm_head backward at llama3-1b widths:
                 its two float32 products (g kept at f32 as two bf16 terms)
                 within 1e-4 of float64 products, the parent's g rounded to
@@ -98,6 +101,33 @@ Phases, each printing JSON lines:
                 (attn_impl="flash", the simt kernels) equal the plain
                 path's ("reference") at llama3-1b widths and 2 layers, with
                 the launch counts read around it;
+  moe_parity    the same at ``llama-moe-debug`` (remat "attn", batch 2 x
+                256): f32 loss within 1e-5 and every gradient, router and
+                experts included, within 1e-4 of the plain path's; then
+                ``moe_block`` at that preset's widths on the card within
+                1e-5 of the same call on the CPU;
+  moe_train     ``mixtral-8x7b-ish`` at full width (hidden 4,096, 32/8
+                heads of 128, 8 experts of 14,336, top-2, capacity 1.25,
+                vocab 128,256, bf16, random weights from a seed) cut to 4 of
+                its 32 layers (``MOE_LAYERS``: 47e9 parameters do not fit
+                one card), through ``TorchTrainer.fit`` with one worker
+                leased the card: remat "attn", 8 x 2,048, chunk 2,048, SGD,
+                1 warm-up and 3 timed steps on one repeated batch. The
+                worker must be another process on the card with each sm90
+                flash kernel at 4 launches a step and the simt ones at 0,
+                and a finite, falling loss; prints tokens per second, MFU
+                (over 989e12), step seconds, the peak allocation, each
+                step's summed aux term and each layer's share of routed
+                choices dropped by capacity;
+  parallel_one_card
+                a one-rank NCCL group (``initialize_process``) and a
+                one-card mesh (``create_mesh``): every collective is the
+                identity, ``ulysses_attention`` equals ``flash_attention``
+                bit for bit (output and gradients, bf16, mixtral's heads at
+                1,024 tokens), ``ring_attention`` is within 2e-2 of the
+                plain attention in bf16 and 1e-5 in f32, and ``moe_block``
+                with ``ep_axis="ep"`` equals ``ep_axis=None`` bit for bit
+                (mixtral's experts, 512 tokens, bf16);
   serve         the serving main path: a llama3-1b ``InferenceEngine`` with
                 random weights serves 8 greedy requests (chunked prefill,
                 mixed dispatch, a prefix hit), with the paged kernels' launch
@@ -119,7 +149,9 @@ Phases, each printing JSON lines:
                 overshoot from deadline to the sweep and to the returned
                 event beside the dispatch wall time;
   recorder      the flight recorder's cost: 8 requests of 97 tokens on an
-                engine sharing those weights, without a prefix cache, with
+                engine sharing the first 4 of those 16 layers
+                (``RECORDER_LAYERS``, a cut to fit the limit), without a
+                prefix cache, with
                 the recorder on and stubbed off, 3 turns of on/off/off/on;
                 tokens must be equal in all 12 runs; prints
                 ``recorder_overhead_frac`` (median over the turns of
@@ -219,8 +251,9 @@ Phases, each printing JSON lines:
                 ``serve.shutdown()`` and ``shutdown()`` no worker process
                 may be left;
   disagg_app    the rest of the serve leg on one new cluster, first
-                ``build_llm_app("llama3-1b", ...,
-                serve_disaggregation="prefill_decode")`` in the ``serve``
+                ``build_llm_app`` of llama3-1b's widths at 4 of its 16
+                layers (``LEG_LAYERS``, a cut to fit the limit),
+                ``serve_disaggregation="prefill_decode"``, in the ``serve``
                 geometry, a prefill and a decode replica each leased half
                 of the card (``num_gpus=0.5``), both on ``cuda`` in
                 processes of their own; ``serve.status()`` shows the
@@ -239,7 +272,8 @@ Phases, each printing JSON lines:
                 ``LLMDeployment``'s; then two unified replicas (half the
                 card each) and an affinity spill between them: equal
                 text, one spill migration, pages imported on the target;
-  fleet_app     llama3-1b under ``autoscaling_config`` (1 to 2 replicas,
+  fleet_app     llama3-1b (``LEG_LAYERS`` deep) under
+                ``autoscaling_config`` (1 to 2 replicas,
                 scale to zero after 5 s idle), half the card a replica:
                 one request, the park (0 running, a standby with its
                 weights in host RAM, still healthy, read through
@@ -406,8 +440,13 @@ SPEC_K, SPEC_PAGE, SPEC_NEW, SPEC_PROMPT = 6, 16, 96, 512
 SPEC_MAX_LEN = -(-(SPEC_PROMPT + SPEC_NEW + SPEC_PAGE) // SPEC_PAGE) * SPEC_PAGE
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t`` is the script's seconds so far."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - _T0, 1),
+                      **fields}), flush=True)
 
 
 def card_line() -> str:
@@ -692,8 +731,9 @@ def phase_time() -> dict:
 
 # ------------------------------------------------------------------- flash
 # llama3-1b's attention at bench.py's batch: q [8, 32, 2048, 64], k/v
-# [8, 8, 2048, 64].
+# [8, 8, 2048, 64]; mixtral-8x7b-ish's (moe_train) at head_dim 128.
 FLASH_MAIN = (8, 32, 8, 2048, 64)
+FLASH_MOE = (8, 32, 8, 2048, 128)
 # dQ/dK/dV: relative to the largest magnitude of the plain version's result
 # (one bf16 rounding of dS or P that may fall the other way on either side,
 # then the output's rounding).
@@ -763,6 +803,7 @@ def flash_cases() -> list:
     cases = [
         # name, (b, hq, hkv, s, d), causal, dtype
         ("llama3-1b_causal", FLASH_MAIN, True, bf16),
+        ("mixtral_causal", FLASH_MOE, True, bf16),
         ("llama3-1b_noncausal_b2", (2, 32, 8, 2048, 64), False, bf16),
         ("llama3-1b_causal_b1_s1024", (1, 32, 8, 1024, 64), True, f32),
         ("d16_rep1_odd_s257", (2, 4, 4, 257, 16), True, bf16),
@@ -891,12 +932,11 @@ def _flash_bound(kind: str, b, hq, hkv, s, d, el: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_flash_time() -> dict:
-    """Every flash kernel at the main shape in bf16, per kernel name; the
-    kernels of the bf16 route (``flash_route``) carry the simt kernel they
-    replace as ``previous_ms``, and must be at least 4x faster than it."""
-    b, hq, hkv, s, d = FLASH_MAIN
-    q, k, v, do = flash_inputs(*FLASH_MAIN, torch.bfloat16, seed=1)
+def _flash_times(shape: tuple, names: list) -> dict:
+    """Each named kernel at ``shape`` in bf16, causal, beside its plain
+    version, its bound and SDPA (forward, or its whole backward)."""
+    b, hq, hkv, s, d = shape
+    q, k, v, do = flash_inputs(*shape, torch.bfloat16, seed=1)
     o, lse = flash_forward_sm90_cuda(q, k, v, True)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, True)
@@ -913,32 +953,52 @@ def phase_flash_time() -> dict:
     plain = {"fwd": flash_forward_plain, "dq": flash_dq_plain,
              "dkdv": flash_dkdv_plain}
     library = {"fwd": library_fwd, "dq": library_bwd, "dkdv": library_bwd}
-    plain_ms = {step: _time_ms(lambda: fn(*step_args[step]), iters=5)
-                for step, fn in plain.items()}
-    ms = {name: _time_ms(lambda: fk.cuda(*step_args[fk.step]))
-          for name, fk in FLASH_KERNELS.items()}
-    out_times = {}
-    for name, fk in FLASH_KERNELS.items():
+    steps = {FLASH_KERNELS[n].step for n in names}
+    plain_ms = {step: _time_ms(lambda: plain[step](*step_args[step]),
+                               iters=5) for step in steps}
+    times = {}
+    for name in names:
+        fk = FLASH_KERNELS[name]
         bound_ms, bound_by = _flash_bound(fk.step, b, hq, hkv, s, d, 2)
-        out_times[name] = {"ms": ms[name], "plain_ms": plain_ms[fk.step],
-                           "bound_ms": bound_ms, "bound_by": bound_by,
-                           "library_ms": library[fk.step]}
-        if fk.variant == "sm90":
-            out_times[name]["previous_ms"] = ms[flash_kernel_of(
-                fk.step, torch.float32)]
-        emit("flash_time", kernel=name, variant=fk.variant,
-             shape=[b, hq, hkv, s, d], causal=True, dtype="bfloat16",
-             library_call="scaled_dot_product_attention"
-             + (" forward" if fk.step == "fwd" else
-                " backward (dQ, dK and dV together)"),
-             **out_times[name])
+        times[name] = {
+            "ms": _time_ms(lambda: fk.cuda(*step_args[fk.step])),
+            "plain_ms": plain_ms[fk.step], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library[fk.step]}
     del q, k, v, do, o, lse, delta, args, step_args, kr, vr, qg, kg, vg, out
     torch.cuda.empty_cache()
+    return times
+
+
+def _flash_library_name(step: str) -> str:
+    return "scaled_dot_product_attention" + (
+        " forward" if step == "fwd" else " backward (dQ, dK and dV together)")
+
+
+def phase_flash_time() -> dict:
+    """Every flash kernel at the main shape in bf16, per kernel name; the
+    kernels of the bf16 route (``flash_route``) carry the simt kernel they
+    replace as ``previous_ms``, and must be at least 4x faster than it.
+    The sm90 kernels are also timed at mixtral-8x7b-ish's attention
+    (``FLASH_MOE``, head_dim 128, ``moe_shape``)."""
+    out_times = _flash_times(FLASH_MAIN, list(FLASH_KERNELS))
+    for name, fk in FLASH_KERNELS.items():
+        if fk.variant == "sm90":
+            out_times[name]["previous_ms"] = out_times[flash_kernel_of(
+                fk.step, torch.float32)]["ms"]
+        emit("flash_time", kernel=name, variant=fk.variant,
+             shape=list(FLASH_MAIN), causal=True, dtype="bfloat16",
+             library_call=_flash_library_name(fk.step), **out_times[name])
     slow = {n: t for n, t in out_times.items()
             if "previous_ms" in t and not t["ms"] <= t["previous_ms"] / 4}
     if slow:
         raise AssertionError(f"sm90 kernels not 4x faster than the simt "
                              f"kernels they replace: {slow}")
+    sm90 = [n for n, fk in FLASH_KERNELS.items() if fk.variant == "sm90"]
+    for name, t in _flash_times(FLASH_MOE, sm90).items():
+        out_times[name]["moe_shape"] = t
+        emit("flash_time", kernel=name, variant="sm90", shape=list(FLASH_MOE),
+             causal=True, dtype="bfloat16",
+             library_call=_flash_library_name(FLASH_KERNELS[name].step), **t)
     return out_times
 
 
@@ -1829,6 +1889,403 @@ def phase_train_parity(seed: int = 1) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------- MoE
+# mixtral-8x7b-ish at full width (hidden 4096, 32/8 heads of 128, 8
+# experts of 14,336, top-2, capacity 1.25, vocab 128,256) with 4 of its 32
+# layers: 47e9 parameters do not fit one 80 GB card.
+MOE_PRESET = "mixtral-8x7b-ish"
+MOE_LAYERS = 4
+MOE_WARMUP, MOE_TIMED = 1, 3
+MOE_RUN = "moe_train"
+# The f32 kernel path against "reference" (as train_parity) and moe_block
+# on the card against the CPU.
+MOE_LOSS_TOL, MOE_GRAD_TOL, MOE_BLOCK_TOL = 1e-5, 1e-4, 1e-5
+
+
+def moe_fit_fn(config: dict) -> None:
+    """The train_fn of the MoE fit: everything is built here, in the
+    worker. ``mixtral-8x7b-ish`` at ``MOE_LAYERS`` layers from the seed on
+    the card, SGD on one repeated batch of seeded tokens; each MoE call's
+    aux term and dropped share are recorded on the way (the forward's
+    calls, not the backward's recompute). The last report carries the
+    losses, step times, throughput, the peak allocation and this process's
+    flash launches."""
+    import time
+
+    started_at = time.time()
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import llama, moe
+    from ray_tpu_torch.ops import attention
+
+    device = torch.device(config["device"])
+    cfg = dataclasses.replace(llama.PRESETS[config["preset"]],
+                              n_layers=config["layers"], remat_policy="attn")
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator(device).manual_seed(
+        config["seed"]))
+    leaves = []
+    for v in params.values():
+        leaves += list(v.values()) if isinstance(v, dict) else [v]
+    for p in leaves:
+        p.requires_grad_()
+    n_params = sum(p.numel() for p in leaves)
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(config["seed"]).integers(
+        0, cfg.vocab_size, (config["batch"], config["seq"]))).to(device)
+
+    calls = []
+    plain_block = llama.moe_block
+
+    def recording(h, layer, **kw):
+        out, aux = plain_block(h, layer, **kw)
+        with torch.no_grad():
+            n = h.shape[0] * h.shape[1]
+            capacity = max(1, int(kw["capacity_factor"] * n * kw["top_k"]
+                                  / kw["n_experts_global"]))
+            _, _, idx = moe._route(h.reshape(n, -1), layer["router"],
+                                   kw["top_k"])
+            dropped = (moe._positions(idx, kw["n_experts_global"])
+                       >= capacity).float().mean()
+            calls.append((aux.detach(), dropped))
+        return out, aux
+
+    llama.moe_block = recording
+    kernels = {name: getattr(attention, attr)
+               for name, attr in config["kernels"].items()}
+    before = {name: k.launches for name, k in kernels.items()}
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_s, aux, dropped = [], [], [], []
+    for i in range(config["warmup"] + config["timed"]):
+        if i == config["warmup"]:
+            torch.cuda.synchronize(device)
+            t_timed = time.perf_counter()
+        t_step = time.perf_counter()
+        calls.clear()
+        loss = llama.loss_fn(params, {"tokens": tokens}, cfg,
+                             chunk_tokens=config["chunk"])
+        loss.backward()
+        with torch.no_grad():
+            for p in leaves:
+                p.sub_(config["lr"] * p.grad)
+                p.grad = None
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t_step)
+        # the forward's calls come first; the backward recomputes each
+        fwd = calls[:cfg.n_layers]
+        aux.append(sum(a.item() for a, _ in fwd))
+        dropped.append([d.item() for _, d in fwd])
+    torch.cuda.synchronize(device)
+    timed_s = time.perf_counter() - t_timed
+    launches = {n: k.launches - before[n] for n, k in kernels.items()}
+    tokens_per_sec = tokens.numel() * config["timed"] / timed_s
+    flops = llama.train_flops_per_token(cfg, config["seq"])
+    train.report({
+        "pid": os.getpid(), "device": str(device), "started_at": started_at,
+        "device_name": torch.cuda.get_device_name(device),
+        "params": n_params, "init_s": init_s, "losses": losses,
+        "step_s": step_s, "timed_s": timed_s, "aux": aux,
+        "dropped_frac": dropped, "tokens_per_sec": tokens_per_sec,
+        "train_flops_per_token": flops,
+        "mfu": tokens_per_sec * flops / config["peak_flops"],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(device),
+        "kernel_launches": launches})
+
+
+def _clone_tree(tree: dict) -> dict:
+    return {k: _clone_tree(v) if isinstance(v, dict)
+            else v.detach().clone().requires_grad_() for k, v in tree.items()}
+
+
+def _named_grads(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_named_grads(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v.grad
+    return out
+
+
+def phase_moe_parity(seed: int = 5) -> dict:
+    """f32 ``llama-moe-debug`` (remat "attn") on the card: loss and every
+    gradient (router and experts included) of the kernel path against
+    ``attn_impl="reference"`` at batch 2 x 256; then ``moe_block`` on the
+    card against the same call on the CPU. Returns the flash launches of
+    the kernel path's step (the f32 route's)."""
+    from ray_tpu_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(PRESETS["llama-moe-debug"], dtype=torch.float32,
+                              remat_policy="attn")
+    base = init_params(cfg, torch.Generator(DEVICE).manual_seed(seed))
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, 256))).to(DEVICE)
+    out = {}
+    for impl in ("flash", "reference"):
+        params = _clone_tree(base)
+        reset_flash_launches()
+        loss = loss_fn(params, {"tokens": tokens},
+                       dataclasses.replace(cfg, attn_impl=impl),
+                       chunk_tokens=TRAIN_CHUNK)
+        loss.backward()
+        torch.cuda.synchronize()
+        if impl == "flash":
+            launches = flash_launches()
+        out[impl] = (loss.item(), _named_grads(params))
+    (loss_k, g_k), (loss_r, g_r) = out["flash"], out["reference"]
+    loss_err = abs(loss_k - loss_r) / abs(loss_r)
+    grad_errs = {n: _errs(g_k[n], g_r[n])[1] for n in g_r}
+
+    # moe_block at the preset's widths in f32: the card against the CPU
+    rng = np.random.default_rng(seed)
+    e, m, x = cfg.hidden, cfg.intermediate, cfg.moe_experts
+    host = {"router": rng.standard_normal((e, x)) * e ** -0.5,
+            "w_gate": rng.standard_normal((x, e, m)) * e ** -0.5,
+            "w_up": rng.standard_normal((x, e, m)) * e ** -0.5,
+            "w_down": rng.standard_normal((x, m, e)) * m ** -0.5}
+    host = {k: torch.from_numpy(v.astype(np.float32)) for k, v in host.items()}
+    xs = torch.from_numpy(rng.standard_normal((2, 256, e)).astype(np.float32))
+    kw = dict(top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
+    want, want_aux = moe.moe_block(xs, host, **kw)
+    got, got_aux = moe.moe_block(xs.to(DEVICE), {k: v.to(DEVICE) for k, v
+                                                 in host.items()}, **kw)
+    block_err = _errs(got.cpu(), want)[1]
+    aux_err = abs(got_aux.item() - want_aux.item()) / abs(want_aux.item())
+    emit("moe_parity", preset="llama-moe-debug", dtype="float32",
+         layers=cfg.n_layers, batch=[2, 256], remat_policy="attn",
+         loss_flash=loss_k, loss_reference=loss_r, loss_rel_err=loss_err,
+         loss_tolerance=MOE_LOSS_TOL, grad_rel_err=grad_errs,
+         grad_tolerance=MOE_GRAD_TOL, moe_block_card_vs_cpu_rel_err=block_err,
+         moe_aux_card_vs_cpu_rel_err=aux_err,
+         moe_block_tolerance=MOE_BLOCK_TOL, kernel_launches=launches)
+    on_route = {flash_kernel_of(step, cfg.dtype)
+                for step in ("fwd", "dq", "dkdv")}
+    if any((n > 0) != (name in on_route) for name, n in launches.items()):
+        raise AssertionError(f"f32 flash launches {launches}: expected only "
+                             f"{sorted(on_route)}")
+    if not loss_err <= MOE_LOSS_TOL:
+        raise AssertionError(f"moe parity: loss {loss_k} vs {loss_r}")
+    bad = {n: err for n, err in grad_errs.items() if not err <= MOE_GRAD_TOL}
+    if bad or {"layers/router", "layers/w_gate"} - set(grad_errs):
+        raise AssertionError(f"moe parity: gradients out of tolerance {bad}")
+    if not (block_err <= MOE_BLOCK_TOL and aux_err <= MOE_BLOCK_TOL):
+        raise AssertionError(f"moe_block card vs CPU: {block_err}, aux "
+                             f"{aux_err}")
+    del base, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_train(seed: int = 0) -> dict:
+    """``mixtral-8x7b-ish`` at full width and ``MOE_LAYERS`` layers through
+    ``TorchTrainer.fit``: one worker leased the card trains it (remat
+    "attn", 8 x 2048, chunk 2048, SGD) for 1 warm-up and 3 timed steps.
+    The worker must be another process on the card with each sm90 flash
+    kernel at ``MOE_LAYERS`` launches a step and the simt ones at 0, and a
+    finite, falling loss. Returns the launches counted in the worker."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+
+    cfg = dataclasses.replace(PRESETS[MOE_PRESET], n_layers=MOE_LAYERS,
+                              remat_policy="attn")
+    steps = MOE_WARMUP + MOE_TIMED
+    storage = tempfile.mkdtemp(prefix="moe_train_")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rt.init()
+    try:
+        t1, fit_started_at = time.perf_counter(), time.time()
+        result = train.TorchTrainer(
+            moe_fit_fn,
+            train_loop_config=dict(
+                preset=MOE_PRESET, layers=MOE_LAYERS, seed=seed, device=DEVICE,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, chunk=TRAIN_CHUNK,
+                lr=TRAIN_LR, warmup=MOE_WARMUP, timed=MOE_TIMED,
+                kernels=_kernel_attrs(),
+                peak_flops=PEAK_FLOPS[torch.bfloat16]),
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=train.RunConfig(name=MOE_RUN,
+                                       storage_path=storage)).fit()
+        fit_s = time.perf_counter() - t1
+        if result.error is not None:
+            raise AssertionError(f"moe fit failed: {result.error}")
+        final = result.metrics_history[-1]
+    finally:
+        try:
+            rt.shutdown()
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+    deadline = time.monotonic() + 20.0
+    while _worker_pids() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = _worker_pids()
+    launches = {name: final["kernel_launches"][name] for name in FLASH_KERNELS}
+    on_route = {flash_kernel_of(step, cfg.dtype)
+                for step in ("fwd", "dq", "dkdv")}
+    expected = {name: cfg.n_layers * steps if name in on_route else 0
+                for name in FLASH_KERNELS}
+    losses = final["losses"]
+    emit("moe_train", preset=MOE_PRESET, n_layers=cfg.n_layers,
+         of_layers=PRESETS[MOE_PRESET].n_layers, hidden=cfg.hidden,
+         heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
+         experts=cfg.moe_experts, expert_mlp=cfg.intermediate,
+         top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+         vocab=cfg.vocab_size, optimizer="sgd", lr=TRAIN_LR,
+         remat_policy=cfg.remat_policy, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         chunk_tokens=TRAIN_CHUNK, warmup_steps=MOE_WARMUP,
+         timed_steps=MOE_TIMED, params=final["params"], fit_s=fit_s,
+         worker_start_s=final["started_at"] - fit_started_at,
+         worker_init_s=final["init_s"], worker_pid=final["pid"],
+         driver_pid=os.getpid(), worker_device=final["device"],
+         worker_device_name=final["device_name"], losses=losses,
+         step_s=final["step_s"],
+         median_step_s=float(np.median(final["step_s"][MOE_WARMUP:])),
+         tokens_per_sec=final["tokens_per_sec"],
+         train_flops_per_token=final["train_flops_per_token"],
+         mfu=final["mfu"], aux=final["aux"],
+         dropped_frac_per_layer=final["dropped_frac"],
+         max_memory_allocated_bytes=final["max_memory_allocated_bytes"],
+         kernel_launches=launches, expected_launches=expected,
+         workers_left=len(left), total_s=time.perf_counter() - t0)
+    if final["pid"] == os.getpid() or not final["device"].startswith("cuda"):
+        raise AssertionError(f"the moe worker ran in {final['pid']} on "
+                             f"{final['device']}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe losses not finite and falling: {losses}")
+    if launches != expected:
+        raise AssertionError(f"moe worker flash launches {launches} != "
+                             f"{expected} ({cfg.n_layers} layers x {steps} "
+                             f"steps)")
+    if left:
+        raise AssertionError(f"worker processes left after shutdown: {left}")
+    return launches
+
+
+# Identity checks of the collectives on a one-rank group; attention and
+# MoE at mixtral-8x7b-ish's head and expert shapes, cut in length.
+PAR_ATTN = (1, 32, 8, 1024, 128)
+PAR_RING_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+PAR_MOE_TOKENS = (1, 512)
+
+
+def phase_parallel_one_card(seed: int = 6) -> dict:
+    """A one-rank NCCL group (``initialize_process``) and a one-card mesh
+    (``create_mesh``): each collective is the identity, ``ulysses_attention``
+    equals ``flash_attention`` bit for bit (output and gradients, bf16),
+    ``ring_attention`` is within 2e-2 of the plain attention in bf16 and
+    1e-5 in f32, and ``moe_block`` with ``ep_axis="ep"`` over the group
+    equals ``ep_axis=None`` bit for bit (bf16)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.ops import (flash_attention, mha_reference,
+                                   ring_attention, ulysses_attention)
+    from ray_tpu_torch.parallel import MeshConfig, collectives, create_mesh
+    from ray_tpu_torch.parallel.distributed import initialize_process
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    world = initialize_process(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = create_mesh(MeshConfig())
+        backend = dist.get_backend()
+        g = torch.Generator(DEVICE).manual_seed(seed)
+        x = torch.randn(4, 8, 16, generator=g, device=DEVICE)
+        identity = {}
+        with collectives.axis_env(mesh):
+            for name, fn in {
+                    "all_reduce_sum": lambda t: collectives.all_reduce(t, "dp"),
+                    "all_reduce_mean": lambda t: collectives.all_reduce(
+                        t, "dp", "mean"),
+                    "all_reduce_max": lambda t: collectives.all_reduce(
+                        t, "dp", "max"),
+                    "all_gather": lambda t: collectives.all_gather(t, "fsdp"),
+                    "all_gather_untiled": lambda t: collectives.all_gather(
+                        t, "fsdp", tiled=False)[0],
+                    "reduce_scatter": lambda t: collectives.reduce_scatter(
+                        t, "tp", scatter_dim=1),
+                    "broadcast": lambda t: collectives.broadcast(t, "pp"),
+                    "all_to_all": lambda t: collectives.all_to_all(
+                        t, "sp", split_dim=1, concat_dim=2),
+                    "ppermute": lambda t: collectives.ppermute(t, "sp"),
+                    "send_recv": lambda t: collectives.send_recv(
+                        t, "ep", [(0, 0)])}.items():
+                identity[name] = bool(torch.equal(fn(x), x))
+            identity["barrier"] = int(collectives.barrier("dcn")) == 1
+
+        b, hq, hkv, s, d = PAR_ATTN
+        q, k, v, do = flash_inputs(b, hq, hkv, s, d, torch.bfloat16, seed)
+        grads = {}
+        for name, fn in (
+                ("flash", flash_attention),
+                ("ulysses", lambda *a, causal: ulysses_attention(
+                    *a, causal=causal, axis="sp", mesh=mesh))):
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            o = fn(qg, kg, vg, causal=True)
+            o.backward(do)
+            grads[name] = (o, qg.grad, kg.grad, vg.grad)
+        ulysses_equal = all(torch.equal(a, b) for a, b in
+                            zip(grads["flash"], grads["ulysses"]))
+        ring_err = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            got = ring_attention(qd, kd, vd, axis="sp", mesh=mesh)
+            ring_err[str(dtype).split(".")[-1]] = _errs(
+                got, mha_reference(qd, kd, vd, causal=True))[0]
+        del q, k, v, do, grads
+
+        e, m, xp = (PRESETS[MOE_PRESET].hidden, PRESETS[MOE_PRESET].intermediate,
+                    PRESETS[MOE_PRESET].moe_experts)
+        params = moe.init_moe_params(torch.Generator(DEVICE).manual_seed(seed),
+                                     hidden=e, expert_mlp=m, n_experts=xp,
+                                     dtype=torch.bfloat16)
+        h = torch.randn(*PAR_MOE_TOKENS, e, generator=g,
+                        device=DEVICE).bfloat16()
+        plain, plain_aux = moe.moe_block(h, params)
+        ep, ep_aux = moe.moe_block(h, params, ep_axis="ep", mesh=mesh)
+        moe_equal = bool(torch.equal(plain, ep)) and bool(
+            torch.equal(plain_aux, ep_aux))
+        del params, h, plain, ep
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit("parallel_one_card", backend=backend, world=world,
+         mesh_shape=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+         collectives_identity=identity, attention_shape=list(PAR_ATTN),
+         ulysses_equals_flash_bitwise=ulysses_equal,
+         ring_max_abs_err=ring_err,
+         ring_tolerance={k: PAR_RING_TOL[getattr(torch, k)] for k in ring_err},
+         moe_tokens=list(PAR_MOE_TOKENS),
+         moe_ep_equals_plain_bitwise=moe_equal,
+         phase_s=time.perf_counter() - t0)
+    if backend != "nccl" or world != 1:
+        raise AssertionError(f"group {backend} of {world}")
+    if not all(identity.values()):
+        raise AssertionError(f"collectives not the identity: {identity}")
+    if not ulysses_equal:
+        raise AssertionError("ulysses_attention differs from flash_attention")
+    bad = {k: e for k, e in ring_err.items()
+           if not e <= PAR_RING_TOL[getattr(torch, k)]}
+    if bad:
+        raise AssertionError(f"ring_attention off the plain attention: {bad}")
+    if not moe_equal:
+        raise AssertionError("moe_block over ep differs from ep_axis=None")
+    return {"ulysses": ulysses_equal, "moe_ep": moe_equal}
+
+
 # ------------------------------------------------------------------- serve
 def _submit(eng: InferenceEngine, prompts: dict, max_new_tokens: int,
             models: dict | None = None) -> list:
@@ -2009,6 +2466,7 @@ DEADLINE_NEW = 64
 DEADLINE_AFTER_S = {"pf": 0.002, "mid0": 0.002, "mid1": 0.005,
                     "mid2": 0.010}
 RECORDER_TURNS = 3
+RECORDER_LAYERS = 4      # of llama3-1b's 16: the depth cut to fit the limit
 RECORDER_NEW = 1 + 3 * STEPS     # the first sample, then 3 dispatches
 
 
@@ -2226,10 +2684,14 @@ def _recorder_turns(eng: InferenceEngine, rng, cfg) -> None:
     prompts, 97 tokens each) served with the recorder on and with
     ``RequestTimeline.add`` stubbed out, each turn on/off/off/on (a drift
     of the host's speed within a turn cancels), on an engine without a
-    prefix cache sharing the weights, so every run has the same shapes
-    and gives the same tokens."""
+    prefix cache sharing the first ``RECORDER_LAYERS`` layers' weights,
+    so every run has the same shapes and gives the same tokens."""
+    params = eng.executor.params
     twin = InferenceEngine(
-        "llama3-1b", eng.executor.params, max_slots=SLOTS, max_len=MAX_LEN,
+        dataclasses.replace(cfg, n_layers=RECORDER_LAYERS),
+        {**params, "layers": {k: w[:RECORDER_LAYERS]
+                              for k, w in params["layers"].items()}},
+        max_slots=SLOTS, max_len=MAX_LEN,
         page_size=PAGE, prefill_chunk_size=CHUNK,
         decode_steps_per_dispatch=STEPS, attention_impl="auto",
         enable_prefix_cache=False)
@@ -2254,7 +2716,8 @@ def _recorder_turns(eng: InferenceEngine, rng, cfg) -> None:
     on, off = (np.reshape(runs[m], (RECORDER_TURNS, 2)).sum(axis=1)
                for m in ("on", "off"))
     fracs = ((on - off) / off).tolist()
-    emit("recorder", preset="llama3-1b", turns=RECORDER_TURNS,
+    emit("recorder", preset="llama3-1b", n_layers=RECORDER_LAYERS,
+         turns=RECORDER_TURNS,
          requests=SLOTS, new_tokens=RECORDER_NEW,
          dispatch_ms_on=runs["on"], dispatch_ms_off=runs["off"],
          recorder_overhead_frac=float(np.median(fracs)),
@@ -3818,6 +4281,7 @@ LADDER_GEOMETRY = dict(max_slots=2, max_len=256, page_size=PAGE,
                        prefill_chunk_size=128, decode_steps_per_dispatch=8)
 BATCH_ROWS, BATCH_NEW = 32, 32
 BATCH_LAYERS = 4         # of llama3-1b's 16: the depth cut to fit the limit
+LEG_LAYERS = 4           # the same cut for disagg_app and fleet_app
 SPAN_WAIT_S = 20.0
 
 
@@ -3886,18 +4350,26 @@ def _handoff_spans(n: int) -> list:
         time.sleep(0.5)
 
 
+def _leg_config():
+    """llama3-1b's widths at ``LEG_LAYERS`` of its layers."""
+    return dataclasses.replace(
+        PRESETS[APP_PRESET],
+        n_layers=min(LEG_LAYERS, PRESETS[APP_PRESET].n_layers))
+
+
 def _disagg_app(app_stats: dict, seed: int) -> dict:
-    """llama3-1b's prefill and decode pools, one replica each on half of
-    the card, one wave of 8 streamed requests at once over HTTP. Returns
-    the decode replica's paged launches."""
+    """llama3-1b's prefill and decode pools (``LEG_LAYERS`` deep), one
+    replica each on half of the card, one wave of 8 streamed requests at
+    once over HTTP. Returns the decode replica's paged launches."""
     from ray_tpu_torch import serve
     from ray_tpu_torch.llm import build_llm_app
 
-    cfg = PRESETS[APP_PRESET]
+    cfg = _leg_config()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     serve.run(build_llm_app(
-        APP_PRESET, serve_disaggregation="prefill_decode", num_replicas=1,
+        cfg, model_id=APP_PRESET, serve_disaggregation="prefill_decode",
+        num_replicas=1,
         prefill_replicas=1, ray_actor_options=HALF_CARD, device=APP_DEVICE,
         **_serve_geometry()),
         name="llm-disagg", timeout_s=APP_START_TIMEOUT_S)
@@ -3976,7 +4448,8 @@ def _disagg_app(app_stats: dict, seed: int) -> dict:
                       "ttft_max_ms": float(max(ttft)),
                       "ttft_ms": {k: r["ttft_ms"] for k, r in runs.items()},
                       "output_tok_per_s": n_tokens / wall})
-    emit("disagg_app", preset=APP_PRESET, app_start_s=start_s,
+    emit("disagg_app", preset=APP_PRESET, n_layers=cfg.n_layers,
+         app_start_s=start_s,
          **stats[0],
          serve_app={k: app_stats[k] for k in (
              "ttft_p50_ms", "ttft_max_ms", "output_tok_per_s",
@@ -4129,9 +4602,9 @@ def _launch_sum(rows: dict) -> dict:
 
 
 def _fleet_app() -> dict:
-    """llama3-1b behind scale-to-zero: one request, the park (0 running,
-    a standby with its weights in host RAM, still healthy), and the wake
-    of the next request from the standby."""
+    """llama3-1b (``LEG_LAYERS`` deep) behind scale-to-zero: one request,
+    the park (0 running, a standby with its weights in host RAM, still
+    healthy), and the wake of the next request from the standby."""
     from ray_tpu_torch import serve
     from ray_tpu_torch.llm import build_llm_app
     from ray_tpu_torch.util.state import list_actors
@@ -4139,7 +4612,8 @@ def _fleet_app() -> dict:
     torch.cuda.empty_cache()
     others = {a["actor_id"] for a in list_actors()}
     serve.run(build_llm_app(
-        APP_PRESET, ray_actor_options=HALF_CARD, device=APP_DEVICE,
+        _leg_config(), model_id=APP_PRESET, ray_actor_options=HALF_CARD,
+        device=APP_DEVICE,
         autoscaling_config={"min_replicas": 1, "max_replicas": 2,
                             "scale_to_zero_idle_s": FLEET_IDLE_S},
         **_serve_geometry()),
@@ -4179,7 +4653,8 @@ def _fleet_app() -> dict:
             raise AssertionError(f"fleet {name}: {r['tokens']} tokens")
     if not _on_route_only(woke_launches, PRESETS[APP_PRESET].dtype):
         raise AssertionError(f"the wake's launches {woke_launches}")
-    emit("fleet_app", preset=APP_PRESET, idle_s=FLEET_IDLE_S,
+    emit("fleet_app", preset=APP_PRESET, n_layers=_leg_config().n_layers,
+         idle_s=FLEET_IDLE_S,
          first_ttft_ms=first["ttft_ms"], park_s=park_s,
          parked={k: parked.get(k) for k in ("running", "standby",
                                             "scaled_to_zero", "fleet")},
@@ -5456,6 +5931,9 @@ def main() -> int:
     fit_launches = phase_train_fit(train_stats)
     loop_launches = phase_train_loop()
     parity_launches = phase_train_parity()
+    moe_parity_launches = phase_moe_parity()
+    moe_launches = phase_moe_train()
+    phase_parallel_one_card()
     launches, serve_stats = phase_serve()
     deadline_launches = phase_deadline()
     paged_parity_launches = phase_parity()
@@ -5539,6 +6017,11 @@ def main() -> int:
             # card, summed (`libraries`, bf16)
             "launches_tune": lib_launches["tune"][name],
             "launches_f32_train_parity": parity_launches[name],
+            # mixtral-8x7b-ish at 4 layers through TorchTrainer.fit, counted
+            # in the worker (`moe_train`, bf16), and the f32 llama-moe-debug
+            # kernel path (`moe_parity`)
+            "launches_moe_train": moe_launches[name],
+            "launches_f32_moe_parity": moe_parity_launches[name],
             "max_abs_err": flash_err[name], **flash_times[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -117,9 +117,18 @@ def params_from_numpy(tree, device=None, dtype: torch.dtype | None = None):
     """Nested dict of numpy arrays -> the same dict of tensors on
     ``device`` (``None``: the card, raising where there is none). Floating
     arrays take ``dtype`` (default: their own, with numpy bfloat16 mapped
-    to ``torch.bfloat16``); integer arrays keep theirs. Layouts are
-    unchanged."""
-    return _tree_to(tree, resolve_device(device), dtype)
+    to ``torch.bfloat16``), except a MoE ``router``, which a given
+    ``dtype`` makes float32 (``init_moe_params`` keeps it so); integer
+    arrays keep theirs. Layouts are unchanged."""
+    device = resolve_device(device)
+
+    def load(node, key=None):
+        if isinstance(node, dict):
+            return {k: load(v, k) for k, v in node.items()}
+        return _to_tensor(node, device, torch.float32
+                          if key == "router" and dtype is not None else dtype)
+
+    return load(tree)
 
 
 def pages_from_numpy(pages: dict, device=None,

@@ -10,11 +10,17 @@ kernels on a CUDA tensor) or ``ops.mha_reference``. bf16 params and
 activations, f32 norm and softmax statistics and loss. Layers run in a
 Python loop over the stacked weights (the JAX package scans them).
 
+MoE presets (``moe_experts`` > 0: ``llama-moe-debug``,
+``mixtral-8x7b-ish``) replace the MLP with ``models.moe.moe_block``
+(top-k routing, per-expert capacity), and the loss adds
+``moe_aux_weight`` times the layers' summed load-balancing term.
+
 Remat policies: ``"full"``, ``"attn"`` (keep q, k, v and the attention
 output) and ``"dots"`` (keep the products' outputs, recompute the rest).
 
-Not ported yet: MoE presets (raise), meshes and pipeline stages (a
-``mesh`` raises), ring and Ulysses attention.
+``attn_impl`` ``"ring"`` and ``"ulysses"`` take the flash kernels when no
+sequence-parallel mesh is given, as the JAX package's do. Not ported yet:
+meshes and pipeline stages (a ``mesh`` raises).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import apply_rope, flash_attention, mha_reference, rms_norm
+from .moe import init_moe_params, moe_block, moe_param_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +47,8 @@ class LlamaConfig:
     rope_theta: float = 500_000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # attention implementation of the training path: "flash" | "reference"
+    # attention implementation of the training path: "flash" | "ring" |
+    # "ulysses" | "reference" ("ring" and "ulysses" without a mesh: flash)
     attn_impl: str = "flash"
     remat: bool = True
     # "full": recompute the whole block in backward; "attn": keep q, k, v
@@ -48,8 +56,11 @@ class LlamaConfig:
     # never runs twice); "dots": keep the outputs of the products that the
     # backward reads, recompute the norms, RoPE, SiLU and attention.
     remat_policy: str = "full"
-    # MoE: n_experts > 0 selects a routed expert MLP (not ported yet).
+    # MoE: when n_experts > 0 the MLP becomes a top-k routed expert layer.
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_aux_weight: float = 0.01
+    moe_capacity_factor: float = 1.25
 
 
 PRESETS: dict[str, LlamaConfig] = {
@@ -70,14 +81,39 @@ PRESETS: dict[str, LlamaConfig] = {
 }
 
 
+def param_axes(config: LlamaConfig):
+    """Tree of logical-axis tuples matching ``init_params`` output."""
+    if config.moe_experts > 0:
+        mlp_axes = moe_param_axes(prefix=("layers",))
+    else:
+        mlp_axes = {
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        }
+    return {
+        "embed": ("vocab_in", "embed"),
+        "layers": {
+            "attn_norm": ("layers", "norm"),
+            "wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+            "mlp_norm": ("layers", "norm"),
+            **mlp_axes,
+        },
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def init_params(config: LlamaConfig, generator: torch.Generator) -> dict:
     """Random init (truncated-normal fan-in scaling), stacked over layers,
     on the generator's device. Draws in the JAX package's order (embed, wq,
-    wk, wv, wo, w_gate, w_up, w_down, lm_head); the numbers differ from
-    JAX's, which tests carry across instead."""
+    wk, wv, wo, the MLP's weights — w_gate, w_up, w_down, or MoE's router,
+    w_gate, w_up, w_down — then lm_head); the numbers differ from JAX's,
+    which tests carry across instead."""
     c = config
-    if c.moe_experts > 0:
-        raise NotImplementedError("MoE presets are not ported yet")
     L, H, E = c.n_layers, c.n_heads, c.hidden
     KH, D, M = c.n_kv_heads, c.head_dim, c.intermediate
     device = generator.device
@@ -96,9 +132,14 @@ def init_params(config: LlamaConfig, generator: torch.Generator) -> dict:
     wk = norm_init((L, E, KH, D), E)
     wv = norm_init((L, E, KH, D), E)
     wo = norm_init((L, H, D, E), H * D)
-    w_gate = norm_init((L, E, M), E)
-    w_up = norm_init((L, E, M), E)
-    w_down = norm_init((L, M, E), M)
+    if c.moe_experts > 0:
+        mlp = init_moe_params(generator, hidden=E, expert_mlp=M,
+                              n_experts=c.moe_experts, dtype=c.dtype,
+                              n_layers=L)
+    else:
+        mlp = {"w_gate": norm_init((L, E, M), E),
+               "w_up": norm_init((L, E, M), E),
+               "w_down": norm_init((L, M, E), M)}
     lm_head = norm_init((E, c.vocab_size), E)
     return {
         "embed": embed,
@@ -106,7 +147,7 @@ def init_params(config: LlamaConfig, generator: torch.Generator) -> dict:
             "attn_norm": ones(L, E),
             "wq": wq, "wk": wk, "wv": wv, "wo": wo,
             "mlp_norm": ones(L, E),
-            "w_gate": w_gate, "w_up": w_up, "w_down": w_down,
+            **mlp,
         },
         "final_norm": ones(E),
         "lm_head": lm_head,
@@ -148,9 +189,16 @@ def _mlp(x, layer, c: LlamaConfig):
     return x + torch.einsum(_DOWN_EQ, _gated(x, layer, c), layer["w_down"])
 
 
-def _check_supported(c: LlamaConfig, mesh) -> None:
-    if c.moe_experts > 0:
-        raise NotImplementedError("MoE presets are not ported yet")
+def _moe_mlp(x, layer, c: LlamaConfig):
+    """Residual routed-expert MLP; returns (x, aux)."""
+    h = rms_norm(x, layer["mlp_norm"], eps=c.norm_eps)
+    down, aux = moe_block(h, layer, top_k=c.moe_top_k,
+                          n_experts_global=c.moe_experts,
+                          capacity_factor=c.moe_capacity_factor)
+    return x + down, aux
+
+
+def _check_supported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "meshes (dp/tp/sp/pp sharding) are not ported yet; pass "
@@ -158,14 +206,15 @@ def _check_supported(c: LlamaConfig, mesh) -> None:
 
 
 def _attention(q, k, v, config: LlamaConfig, mesh=None):
-    _check_supported(config, mesh)
-    if config.attn_impl == "flash":
+    # "ring" and "ulysses" shard the sequence over a mesh's sp axis; with
+    # no mesh they are the flash kernel, as in the JAX package
+    _check_supported(mesh)
+    if config.attn_impl in ("flash", "ring", "ulysses"):
         return flash_attention(q, k, v, causal=True)
     if config.attn_impl == "reference":
         return mha_reference(q, k, v, causal=True)
-    if config.attn_impl in ("ring", "ulysses", "none"):
-        raise NotImplementedError(
-            f"attn_impl {config.attn_impl!r} is not ported yet")
+    if config.attn_impl == "none":
+        raise NotImplementedError("attn_impl 'none' is not ported yet")
     raise ValueError(f"unknown attn_impl {config.attn_impl!r}")
 
 
@@ -179,26 +228,39 @@ def _attn_inputs(x, layer, positions, c: LlamaConfig, product=_einsum):
 
 
 def _attn_out_and_mlp(x, attn, layer, c: LlamaConfig):
-    """Output projection and residual, then the residual MLP."""
+    """Output projection and residual, then the residual MLP. Returns
+    (x, aux): MoE's load-balancing term, None for a dense MLP."""
     x = x + torch.einsum(_WO_EQ, attn, layer["wo"])
-    return _mlp(x, layer, c)
+    if c.moe_experts > 0:
+        return _moe_mlp(x, layer, c)
+    return _mlp(x, layer, c), None
 
 
 def _block(x, layer, positions, config: LlamaConfig, mesh=None):
-    """One decoder block. x: [B, S, E] in config.dtype -> the same. (The
-    JAX block also returns the MoE aux loss; dense blocks have none.)"""
+    """One decoder block. x: [B, S, E] in config.dtype -> (the same, aux):
+    the MoE aux loss, None for a dense block (the JAX block's 0.0)."""
     q, k, v = _attn_inputs(x, layer, positions, config)
     attn = _attention(q, k, v, config, mesh)
     return _attn_out_and_mlp(x, attn, layer, config)
 
 
-_LAYER_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
-                "w_up", "w_down")
+_ATTN_NAMES = ("attn_norm", "wq", "wk", "wv", "wo")
+_LAYER_NAMES = _ATTN_NAMES + ("mlp_norm", "w_gate", "w_up", "w_down")
 # The products whose outputs "dots" keeps, in the order it saves them.
 # The down product's output only feeds the residual add, whose backward
 # never reads it, so it is not kept (nor is it by JAX's remat, which
 # saves only the residuals its backward reads).
 DOTS_SAVED = ("q", "k", "v", "wo", "gate", "up")
+# Under MoE the "dots" Function covers the attention half only.
+_DOTS_SAVED_MOE = DOTS_SAVED[:4]
+
+
+def _dots_names(c: LlamaConfig) -> tuple:
+    """(the layer weights the "dots" Function takes, the products it
+    keeps)."""
+    if c.moe_experts > 0:
+        return _ATTN_NAMES, _DOTS_SAVED_MOE
+    return _LAYER_NAMES, DOTS_SAVED
 
 
 def _product_grads(eq: str, a, w, g):
@@ -230,9 +292,11 @@ class _SavedProduct(torch.autograd.Function):
 def _dots_body(x, layer, positions, c: LlamaConfig, product):
     """The block up to the down product, with each product made by
     ``product(name, eq, a, w)``. Returns the residual after attention and
-    the SiLU-gated MLP input."""
+    the SiLU-gated MLP input (None under MoE, whose MLP is not here)."""
     q, k, v = _attn_inputs(x, layer, positions, c, product)
     x = x + product("wo", _WO_EQ, _attention(q, k, v, c), layer["wo"])
+    if c.moe_experts > 0:
+        return x, None
     return x, _gated(x, layer, c, product)
 
 
@@ -248,7 +312,8 @@ class _DotsBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, positions, c, *weights):
-        layer = dict(zip(_LAYER_NAMES, weights))
+        names, saved = _dots_names(c)
+        layer = dict(zip(names, weights))
         kept = {}
 
         def product(name, eq, a, w):
@@ -256,23 +321,29 @@ class _DotsBlock(torch.autograd.Function):
             return kept[name]
 
         x1, ff = _dots_body(x, layer, positions, c, product)
-        ctx.save_for_backward(x, *(kept[n] for n in DOTS_SAVED), *weights)
+        ctx.save_for_backward(x, *(kept[n] for n in saved), *weights)
         ctx.positions, ctx.c = positions, c
+        if ff is None:
+            return x1
         return x1 + torch.einsum(_DOWN_EQ, ff, layer["w_down"])
 
     @staticmethod
     def backward(ctx, g):
+        names, saved = _dots_names(ctx.c)
         x, *rest = ctx.saved_tensors
-        kept = dict(zip(DOTS_SAVED, rest[:len(DOTS_SAVED)]))
-        weights = rest[len(DOTS_SAVED):]
+        kept = dict(zip(saved, rest[:len(saved)]))
+        weights = rest[len(saved):]
         with torch.enable_grad():
             x = x.detach().requires_grad_()
             leaves = [w.detach().requires_grad_() for w in weights]
-            layer = dict(zip(_LAYER_NAMES, leaves))
+            layer = dict(zip(names, leaves))
             x1, ff = _dots_body(
                 x, layer, ctx.positions, ctx.c,
                 lambda name, eq, a, w: _SavedProduct.apply(a, w, kept[name],
                                                            eq))
+            if ff is None:
+                grads = torch.autograd.grad(x1, [x, *leaves], g)
+                return (grads[0], None, None, *grads[1:])
             dff, dw_down = _product_grads(_DOWN_EQ, ff, layer["w_down"], g)
             inputs = [x, *leaves[:-1]]
             grads = torch.autograd.grad([x1, ff], inputs, [g, dff])
@@ -280,7 +351,7 @@ class _DotsBlock(torch.autograd.Function):
 
 
 def _apply_remat(config: LlamaConfig, positions, mesh=None):
-    """The decoder block ``(x, layer) -> x`` under the configured
+    """The decoder block ``(x, layer) -> (x, aux)`` under the configured
     rematerialisation policy (``torch.utils.checkpoint``).
 
     ``"attn"`` keeps what the JAX policy ``save_only_these_names("q", "k",
@@ -290,7 +361,13 @@ def _apply_remat(config: LlamaConfig, positions, mesh=None):
     projections and RoPE again), the attention outside any checkpoint (it
     saves q, k, v, its output and lse, and its forward runs once per
     step), and one checkpoint over (x, attn) -> the block output.
-    ``"dots"`` is ``_DotsBlock``."""
+    ``"dots"`` is ``_DotsBlock``; under MoE it covers the attention half,
+    and the MoE MLP runs under a checkpoint that keeps only its input,
+    recomputing the norm, the routing, the gather, the expert products
+    and the combine in the backward (JAX's policy would also keep the
+    router logits, the gathered ``expert_in`` and the combined output,
+    whose dispatch and combine einsums have no batch dimension).
+    Every policy computes the same values."""
     c = config
     if not c.remat:
         return lambda x, layer: _block(x, layer, positions, c, mesh)
@@ -306,24 +383,40 @@ def _apply_remat(config: LlamaConfig, positions, mesh=None):
                               use_reentrant=False)
         return block
     if c.remat_policy == "dots":
+        names, _ = _dots_names(c)
+
         def block(x, layer):
-            _check_supported(c, mesh)
-            return _DotsBlock.apply(x, positions, c,
-                                    *(layer[n] for n in _LAYER_NAMES))
+            _check_supported(mesh)
+            x = _DotsBlock.apply(x, positions, c, *(layer[n] for n in names))
+            if c.moe_experts > 0:
+                return checkpoint(_moe_mlp, x, layer, c, use_reentrant=False)
+            return x, None
         return block
     raise ValueError(f"unknown remat_policy {c.remat_policy!r}")
 
 
-def forward_hidden(params, tokens, config: LlamaConfig, *, mesh=None):
-    """tokens [B, S] int -> final hidden states [B, S, E] in config.dtype."""
+def forward_hidden(params, tokens, config: LlamaConfig, *, mesh=None,
+                   return_aux: bool = False):
+    """tokens [B, S] int -> final hidden states [B, S, E] in config.dtype.
+
+    ``return_aux=True`` additionally returns the summed MoE load-balancing
+    loss (0.0 for dense configs)."""
     c = config
-    _check_supported(c, mesh)
+    _check_supported(mesh)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = params["embed"][tokens].to(c.dtype)
     block = _apply_remat(c, positions, mesh)
+    aux = None
     for l in range(params["layers"]["wq"].shape[0]):
-        x = block(x, _layer(params, l))
-    return rms_norm(x, params["final_norm"], eps=c.norm_eps)
+        x, a = block(x, _layer(params, l))
+        if a is not None:
+            aux = a if aux is None else aux + a
+    out = rms_norm(x, params["final_norm"], eps=c.norm_eps)
+    if not return_aux:
+        return out
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return out, aux
 
 
 def forward(params, tokens, config: LlamaConfig, *, mesh=None):
@@ -336,10 +429,12 @@ def forward(params, tokens, config: LlamaConfig, *, mesh=None):
 def train_flops_per_token(config: LlamaConfig, seq: int) -> float:
     """Model FLOPs per trained token (6N active-param matmul + causal
     attention), the numerator of MFU. Embedding gather excluded (standard
-    accounting)."""
+    accounting); MoE counts the top_k ACTIVE experts plus the router."""
     c = config
-    _check_supported(c, None)
-    mlp = 3 * c.hidden * c.intermediate
+    if c.moe_experts > 0:
+        mlp = c.moe_top_k * 3 * c.hidden * c.intermediate + c.hidden * c.moe_experts
+    else:
+        mlp = 3 * c.hidden * c.intermediate
     n_params = c.n_layers * (
         c.hidden * c.head_dim * (c.n_heads * 2 + c.n_kv_heads * 2) + mlp
     ) + c.hidden * c.vocab_size
@@ -435,9 +530,15 @@ def loss_fn(params, batch, config: LlamaConfig, *, mesh=None,
 
     The lm_head product runs per chunk of ``chunk_tokens`` tokens, each
     chunk under a checkpoint, so the [B, S, vocab] logits never exist;
-    tokens are padded (mask 0) to a whole number of chunks."""
+    tokens are padded (mask 0) to a whole number of chunks. MoE configs
+    add ``moe_aux_weight`` times the summed load-balancing term."""
     tokens = batch["tokens"]
-    hidden = forward_hidden(params, tokens, config, mesh=mesh)
+    aux = None
+    if config.moe_experts > 0:
+        hidden, aux = forward_hidden(params, tokens, config, mesh=mesh,
+                                     return_aux=True)
+    else:
+        hidden = forward_hidden(params, tokens, config, mesh=mesh)
     targets = tokens[:, 1:]
     hidden = hidden[:, :-1]
     mask = batch.get("mask")
@@ -462,4 +563,5 @@ def loss_fn(params, batch, config: LlamaConfig, *, mesh=None,
         total = total + checkpoint(
             _chunk_loss, flat_h[i:i + chunk], flat_t[i:i + chunk],
             flat_m[i:i + chunk], params["lm_head"], use_reentrant=False)
-    return -total / torch.clamp(flat_m.sum(), min=1.0)
+    ce = -total / torch.clamp(flat_m.sum(), min=1.0)
+    return ce if aux is None else ce + config.moe_aux_weight * aux

@@ -38,10 +38,9 @@ TOL_GRAD = 1e-4
 
 
 def _configs(preset, **kw):
-    jcfg = dataclasses.replace(JAX_PRESETS[preset], dtype=jnp.float32,
-                               attn_impl="flash", **kw)
-    tcfg = dataclasses.replace(PRESETS[preset], dtype=torch.float32,
-                               attn_impl="flash", **kw)
+    kw = {"attn_impl": "flash", **kw}
+    jcfg = dataclasses.replace(JAX_PRESETS[preset], dtype=jnp.float32, **kw)
+    tcfg = dataclasses.replace(PRESETS[preset], dtype=torch.float32, **kw)
     return jcfg, tcfg
 
 
@@ -217,37 +216,38 @@ def test_three_sgd_steps_match_jax(preset):
 
 
 @pytest.mark.parametrize("preset", ["llama3-8b", "llama3-1b",
-                                    "llama3-8b-proxy", "debug", "debug-128"])
+                                    "llama3-8b-proxy", "debug", "debug-128",
+                                    "llama-moe-debug", "mixtral-8x7b-ish"])
 def test_train_flops_per_token_matches_jax(preset):
     for seq in (2048, 33):
         assert train_flops_per_token(PRESETS[preset], seq) == \
             jax_flops(JAX_PRESETS[preset], seq)
 
 
-@pytest.mark.parametrize("preset", ["llama-moe-debug", "mixtral-8x7b-ish"])
-def test_moe_presets_raise(preset):
-    cfg = PRESETS[preset]
-    tokens = torch.zeros(1, 4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        forward_hidden({}, tokens, cfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        train_flops_per_token(cfg, 16)
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_ring_and_ulysses_without_a_mesh_match_jax(impl):
+    """With no mesh, ``attn_impl`` "ring" and "ulysses" are the flash
+    kernel in both packages: the loss and every gradient equal JAX's
+    ``loss_fn`` under the same ``attn_impl``."""
+    jcfg, tcfg = _configs("debug", attn_impl=impl)
+    jparams, tparams = _params(tcfg, seed=6)
+    batch = _batch(_tokens(tcfg, seed=7), masked=True)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jax_loss_fn(p, b, jcfg, chunk_tokens=CHUNK["debug"])))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    loss, grads = _port_loss_and_grads(tcfg, tparams, batch, CHUNK["debug"])
+    _assert_close(loss, float(want_loss), TOL_FWD, "loss")
+    _assert_tree_close(grads, jax.tree.map(np.asarray, want_grads), TOL_GRAD)
 
 
-@pytest.mark.parametrize("what", ["mesh", "ring"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_unported_options_raise(what):
+    """``forward_hidden(mesh=)`` is not ported yet."""
     _, tcfg = _configs("debug")
     _, tparams = _params(tcfg)
     tokens = torch.from_numpy(_tokens(tcfg, s=8))
-    kw = {}
-    if what == "mesh":
-        kw["mesh"] = object()
-    else:
-        tcfg = dataclasses.replace(tcfg, attn_impl="ring")
     with pytest.raises(NotImplementedError):
-        loss_fn(tparams, {"tokens": tokens}, tcfg, **kw)
+        loss_fn(tparams, {"tokens": tokens}, tcfg, mesh=object())
 
 
 def _lm_head_inputs(c, e, v, seed):

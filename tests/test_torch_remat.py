@@ -91,7 +91,8 @@ def test_dots_keeps_the_products_and_no_elementwise_output():
     saved = []
     with torch.autograd.graph.saved_tensors_hooks(
             lambda t: saved.append(t) or t, lambda t: t):
-        out = llama._apply_remat(cfg, positions)(x, layer)
+        out, aux = llama._apply_remat(cfg, positions)(x, layer)
+    assert aux is None
 
     with torch.no_grad():
         h = rms_norm(x, layer["attn_norm"], eps=cfg.norm_eps)
